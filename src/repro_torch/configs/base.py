@@ -1,0 +1,119 @@
+"""Model configuration dataclasses for the PyTorch port.
+
+A copy of `repro.configs.base.ModelConfig` and its sub-configs: the port
+keeps its own so it never imports the JAX package. The TPU shape cells
+(`ShapeConfig`) stay behind with the dry-run tooling.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0            # routed experts
+    n_shared_experts: int = 0     # always-on experts (DeepSeek-style)
+    top_k: int = 0
+    d_ff_expert: int = 0          # per-expert FFN width
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0          # 0 = direct q projection
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2               # mamba inner expansion
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                  # query heads (0 for attn-free archs)
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+
+    # token-mixer kind: gqa | mla | hymba | rwkv6 (the port runs gqa)
+    attn_kind: str = "gqa"
+
+    # sliding-window / local:global structure.
+    # window == 0  -> full causal attention everywhere.
+    # window  > 0  -> local layers attend within `window`; layers whose index
+    #                 is in `global_every`-step positions are global.
+    window: int = 0
+    global_every: int = 0
+    global_layers: Tuple[int, ...] = ()
+
+    mla: MLAConfig = field(default_factory=MLAConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+
+    frontend: str = "none"        # none | vision | audio (stub embeddings)
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    rwkv_head_size: int = 64
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A tiny same-family config for CPU tests."""
+        small = dict(
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_head=16,
+            d_ff=128,
+            vocab_size=256,
+        )
+        if self.attn_kind == "mla":
+            small["mla"] = MLAConfig(
+                kv_lora_rank=16, q_lora_rank=0, qk_nope_dim=16,
+                qk_rope_dim=8, v_head_dim=16)
+        if self.moe.n_experts:
+            small["moe"] = MoEConfig(
+                n_experts=4, n_shared_experts=min(self.moe.n_shared_experts, 1),
+                top_k=2, d_ff_expert=32, capacity_factor=2.0)
+        if self.attn_kind == "hymba":
+            small["ssm"] = SSMConfig(d_state=4, d_conv=4, expand=2)
+            small["global_layers"] = (0,)
+        if self.window:
+            small["window"] = 8
+        if self.global_every:
+            small["global_every"] = 2
+        if self.attn_kind == "rwkv6":
+            small["rwkv_head_size"] = 16
+            small["n_heads"] = 0
+            small["n_kv_heads"] = 0
+        small.update(overrides)
+        return dataclasses.replace(self, name=self.name + "-reduced", **small)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab padded to a multiple of 256 (same table shapes as the JAX
+        package, so one weight dict loads in both)."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def is_mla(self) -> bool:
+        return self.attn_kind == "mla"
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe.n_experts > 0

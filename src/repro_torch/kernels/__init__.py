@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+  decode_attention    flash-decode over padded variable-length compressed
+                      KV caches (single token and fused Lq-token query);
+                      the hot loop of Stretto's prefill-skip operators
+  expected_attention  query-agnostic Expected-Attention compression scores
+  ref                 plain PyTorch versions of every kernel
+  ops                 backend-selecting wrappers (auto | cuda | ref)
+  build               nvcc + ctypes loader for csrc/*.cu
+
+Importing this package compiles nothing; each kernel builds at its first
+launch on the card.
+"""

@@ -1,0 +1,450 @@
+"""Prefill-skip batched serving engine (paper §5, Fig. 4), in PyTorch.
+
+The port of `repro.serving.engine`. Offline, `build_profiles` prefills
+every corpus item once per model, scores every position with Expected
+Attention, keeps the top positions at each ladder ratio (optionally
+quantizing rungs to int8) and persists the profiles in the CacheStore.
+Online, `run_filter` / `run_map` load a profile's caches for a batch of
+items, pad them to the longest, skip prefill, feed the operator's query
+tokens through the decode path and read out answer-token log-odds or a
+greedy value with its top-2 margin.
+
+The decode path:
+  - attention runs through kernels.ops (`kernels` ctor arg, else the
+    STRETTO_TORCH_KERNELS env var: auto | cuda | ref): on the card, the
+    hand-written CUDA kernels;
+  - by default the query goes through ONE fused multi-token attention
+    launch per layer (`decode_multi`); `fused=False` (or STRETTO_FUSED=0)
+    feeds the tokens one `decode_step` at a time;
+  - repeated flushes of the same (profile, batch) skip the npz read, the
+    padding and the H2D copy through a device-resident LRU bounded by
+    `memory_budget_bytes` (`device_cache` ctor arg, else
+    STRETTO_DEVICE_CACHE). A hit adds nothing to kv_bytes, which counts
+    real loads only. Decode writes the query's k/v into the cache tensors
+    in place, so flushes over one LRU entry enqueue their decodes one at a
+    time, under the entry's lock.
+
+Transfers overlap compute (`async_h2d`, else STRETTO_ASYNC_H2D): a
+multi-batch run enqueues batch i's decode, then loads and copies batch
+i+1's caches (pinned host memory, non-blocking copy) before it reads
+batch i's logits back, so the load hides behind the decode; the hidden
+time is counted into `h2d_overlap_s`. On the same flag, when the LRU is
+off, a flush drops its cache tensors as soon as the decode is enqueued,
+which hands their memory back to PyTorch's stream-ordered caching
+allocator for the next batch; those bytes are counted into
+`donated_bytes` (the JAX engine's buffer donation). Both counters are
+kept globally and per thread (`transfer_stats_local`).
+
+Batch size is memory-bounded: higher compression -> smaller caches ->
+larger batches -> fewer calls (the paper's batching speedup mechanism).
+Multi-device placement (`place_on` onto another device) waits with the
+mesh dispatcher; an engine runs on one device.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.cache.compression import (QueryStats, calibrate_query_stats,
+                                           compress_item_cache, quantize_kv,
+                                           score_positions)
+from repro_torch.cache.store import CacheStore, Profile
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as KOPS
+from repro_torch.models import decode_multi, decode_step, prefill, \
+    supports_fused_decode
+
+# Loads pad the cache length to a multiple of the kernels' position chunk
+# (the JAX engine pads to its Pallas block for the same reason). Padded
+# positions are masked exactly and kv_bytes counts unpadded bytes.
+KERNEL_BLOCK_S = 128
+BUILD_STEPS = ("calibrate", "prefill", "compress", "store")
+
+
+def _env_flag(name: str, default: bool = True) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v not in ("0", "false", "False", "no")
+
+
+def _nbytes(cache: Dict[str, Any]) -> int:
+    return sum(v.numel() * v.element_size() for v in cache.values()
+               if isinstance(v, torch.Tensor))
+
+
+@dataclass
+class EngineModel:
+    cfg: ModelConfig
+    params: Any
+    stats: Optional[QueryStats] = None
+    host_embed: Optional[np.ndarray] = None
+
+
+class ServingEngine:
+    """Executes semantic operators over precomputed KV-cache profiles."""
+
+    def __init__(self, store: CacheStore,
+                 memory_budget_bytes: float = 2e9,
+                 max_batch: int = 128,
+                 kernels: Optional[str] = None,
+                 fused: Optional[bool] = None,
+                 device_cache: Optional[bool] = None,
+                 async_h2d: Optional[bool] = None,
+                 device="cuda"):
+        self.store = store
+        self.device = resolve_device(device)
+        self.models: Dict[str, EngineModel] = {}
+        self.memory_budget = memory_budget_bytes
+        self.max_batch = max_batch
+        # attention backend: explicit arg > STRETTO_TORCH_KERNELS > auto,
+        # resolved at flush time so the env var can flip between flushes
+        self.kernels = kernels
+        self.fused = (_env_flag("STRETTO_FUSED") if fused is None
+                      else bool(fused))
+        self.device_cache = (_env_flag("STRETTO_DEVICE_CACHE")
+                             if device_cache is None else bool(device_cache))
+        self.async_h2d = (_env_flag("STRETTO_ASYNC_H2D")
+                          if async_h2d is None else bool(async_h2d))
+        self.h2d_overlap_s = 0.0
+        self.donated_bytes = 0
+        self._xfer_lock = threading.Lock()
+        self._xfer_tl = threading.local()
+        # device-resident profile cache: (profile.tag, ids, headroom) ->
+        # (cache on device, nbytes, lock held while a flush decodes over
+        # it); one lock serializes lookup-or-load so concurrent flushes of
+        # one key load once
+        self._dev_cache: "OrderedDict[Tuple, Tuple[Any, int, Any]]" = \
+            OrderedDict()
+        self._dev_bytes = 0
+        self._dev_lock = threading.Lock()
+        self.dev_cache_hits = 0
+        self.dev_cache_misses = 0
+        # attention launches per layer issued by flushes (1 per fused
+        # flush, len(query) per scan flush)
+        self.attn_dispatches = 0
+        # seconds spent in each offline build step (BUILD_STEPS)
+        self.build_seconds = {k: 0.0 for k in BUILD_STEPS}
+
+    # ---------------- placement + transfer telemetry ----------------
+
+    @contextlib.contextmanager
+    def place_on(self, device, sharding=None):
+        """Single-device engine: placing onto its own device is a no-op;
+        another device raises (multi-device placement is not ported)."""
+        if device is not None and torch.device(device) != self.device:
+            raise NotImplementedError(
+                f"engine runs on {self.device}; placement on {device} waits "
+                f"with the mesh dispatcher")
+        yield
+
+    def _count_xfer(self, h2d_s: float = 0.0, donated: int = 0):
+        tl = self._xfer_tl
+        tl.h2d_s = getattr(tl, "h2d_s", 0.0) + h2d_s
+        tl.donated = getattr(tl, "donated", 0) + donated
+        with self._xfer_lock:
+            self.h2d_overlap_s += h2d_s
+            self.donated_bytes += donated
+
+    def transfer_stats_local(self) -> Tuple[float, int]:
+        """Monotonic (h2d_overlap_s, donated_bytes) for the calling
+        thread."""
+        tl = self._xfer_tl
+        return (getattr(tl, "h2d_s", 0.0), getattr(tl, "donated", 0))
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---------------- offline phase ----------------
+
+    def register_model(self, name: str, cfg: ModelConfig, params):
+        self.models[name] = EngineModel(cfg, params)
+
+    def host_embed(self, model_name: str) -> np.ndarray:
+        """The embedding table on the host, copied once per model."""
+        em = self.models[model_name]
+        if em.host_embed is None:
+            em.host_embed = em.params["embed"].float().cpu().numpy()
+        return em.host_embed
+
+    def build_profiles(self, model_name: str, items: Sequence[Any],
+                       ratios: Sequence[float], prefill_batch: int = 16,
+                       quant_ratios: Sequence[float] = ()):
+        """Prefill every item once, compress at every ratio, persist.
+
+        Scores do not depend on the ratio, so each item is scored once and
+        every rung keeps its top positions from those scores (the JAX
+        engine rescores per rung; the kept sets are the same). Seconds per
+        step accumulate in `build_seconds`."""
+        em = self.models[model_name]
+        cfg = em.cfg
+        secs = self.build_seconds
+        if em.stats is None:
+            t0 = time.perf_counter()
+            calib = _pad_tokens([it.tokens for it in items[:8]],
+                                device=self.device)
+            em.stats = calibrate_query_stats(em.params, cfg, tokens=calib)
+            self._sync()
+            secs["calibrate"] += time.perf_counter() - t0
+        for start in range(0, len(items), prefill_batch):
+            chunk = items[start:start + prefill_batch]
+            t0 = time.perf_counter()
+            toks = _pad_tokens([it.tokens for it in chunk],
+                               device=self.device)
+            lengths = torch.tensor([len(it.tokens) for it in chunk],
+                                   dtype=torch.int32, device=self.device)
+            _, cache = prefill(em.params, cfg, tokens=toks,
+                               max_len=toks.shape[1], lengths=lengths)
+            self._sync()
+            secs["prefill"] += time.perf_counter() - t0
+            for bi, it in enumerate(chunk):
+                item_cache = {k: cache[k][:, bi:bi + 1] for k in ("k", "v")}
+                n = len(it.tokens)
+                t0 = time.perf_counter()
+                scores = None
+                if any(r > 0 for r in ratios) or quant_ratios:
+                    scores = score_positions(cfg, item_cache, em.stats, n,
+                                             kernels=self.kernels)
+                rungs = []
+                for ratio in ratios:
+                    arrays, new_len = compress_item_cache(
+                        cfg, item_cache, em.stats, ratio, n, scores=scores)
+                    rungs.append((Profile(model_name, ratio), arrays,
+                                  new_len))
+                for ratio in quant_ratios:
+                    arrays, new_len = compress_item_cache(
+                        cfg, item_cache, em.stats, ratio, n, scores=scores)
+                    rungs.append((Profile(model_name, ratio, quant=True),
+                                  quantize_kv(arrays), new_len))
+                t1 = time.perf_counter()
+                secs["compress"] += t1 - t0
+                for profile, arrays, new_len in rungs:
+                    self.store.save(profile, it.item_id, arrays, new_len)
+                secs["store"] += time.perf_counter() - t1
+
+    # ---------------- online phase ----------------
+
+    def max_batch_for(self, model_name: str, ratio: float,
+                      item_id: Optional[int] = None,
+                      quant: bool = False) -> int:
+        """Memory-bounded max decode batch for a (model, ratio) profile,
+        from the store's per-item metadata; never above `max_batch`."""
+        profile = Profile(model_name, ratio, quant)
+        per_item = self.store.item_nbytes(profile, item_id)
+        if per_item is None:
+            return self.max_batch
+        b = max(1, int(self.memory_budget / max(per_item, 1)))
+        return min(b, self.max_batch)
+
+    def _batch_size(self, profile: Profile, item_ids) -> int:
+        b = self.max_batch_for(profile.model_name, profile.ratio,
+                               item_ids[0], quant=profile.quant)
+        return min(b, len(item_ids))
+
+    def _run_tokens(self, em: EngineModel, fused: bool, backend: str,
+                    cache, tokens):
+        """Final-token logits of the query `tokens` (B, Lq) over `cache`."""
+        if fused:
+            return decode_multi(em.params, em.cfg, cache, tokens=tokens,
+                                kernels=backend)[0]
+        logits = None
+        for t in range(tokens.shape[1]):
+            logits, cache = decode_step(em.params, em.cfg, cache,
+                                        tokens=tokens[:, t:t + 1],
+                                        kernels=backend)
+        return logits
+
+    def warm(self, model_name: str, ratio: float, item_ids: Sequence[int],
+             query_len: int = 1, quant: bool = False) -> int:
+        """Pre-stage a profile's flush batches in the device-resident LRU;
+        returns the number of batches staged (0 when the device cache is
+        off, the model unknown or the rung not built)."""
+        if not self.device_cache or model_name not in self.models \
+                or not item_ids:
+            return 0
+        em = self.models[model_name]
+        profile = Profile(model_name, ratio, quant)
+        ids = [int(i) for i in item_ids if self.store.has(profile, i)]
+        if not ids:
+            return 0
+        bs = self._batch_size(profile, ids)
+        query_tokens = [0] * max(int(query_len), 1)
+        n = 0
+        for s in range(0, len(ids), bs):
+            self._load_for(em, profile, ids[s:s + bs], query_tokens, bs)
+            n += 1
+        return n
+
+    def evict(self, model_name: Optional[str] = None,
+              ratio: Optional[float] = None,
+              quant: bool = False) -> int:
+        """Drop device-LRU entries: everything (model_name=None), every
+        rung of a model (ratio=None) or one profile. Returns entries
+        dropped; the on-disk profiles stay."""
+        with self._dev_lock:
+            if model_name is None:
+                n = len(self._dev_cache)
+                self._dev_cache.clear()
+                self._dev_bytes = 0
+                return n
+            if ratio is None:
+                prefix = f"{model_name}__r"
+                keys = [k for k in self._dev_cache
+                        if k[0].startswith(prefix)]
+            else:
+                tag = Profile(model_name, ratio, quant).tag
+                keys = [k for k in self._dev_cache if k[0] == tag]
+            for k in keys:
+                self._dev_bytes -= self._dev_cache.pop(k)[1]
+            return len(keys)
+
+    def _load_cached(self, em: EngineModel, profile: Profile,
+                     ids: Sequence[int], headroom: int, n_real: int):
+        """load_batch through the device-resident LRU. Returns (cache,
+        lock): the lock of the LRU entry, None for a private load."""
+        def load():
+            return self.store.load_batch(
+                em.cfg, profile, ids, pad_to_multiple=KERNEL_BLOCK_S,
+                headroom=headroom, n_real=n_real, device=self.device)[0]
+
+        if not self.device_cache:
+            return load(), None
+        key = (profile.tag, tuple(ids), headroom)
+        with self._dev_lock:
+            hit = self._dev_cache.get(key)
+            if hit is not None:
+                self._dev_cache.move_to_end(key)
+                self.dev_cache_hits += 1
+                return hit[0], hit[2]
+            self.dev_cache_misses += 1
+            cache = load()
+            nbytes = _nbytes(cache)
+            lock = threading.Lock()
+            self._dev_cache[key] = (cache, nbytes, lock)
+            self._dev_bytes += nbytes
+            while self._dev_bytes > self.memory_budget \
+                    and len(self._dev_cache) > 1:
+                self._dev_bytes -= self._dev_cache.popitem(last=False)[1][1]
+            return cache, lock
+
+    def _load_for(self, em: EngineModel, profile: Profile, ids: List[int],
+                  query_tokens: Sequence[int], bs: int):
+        """One flush batch's (caches, LRU lock), padded to the same shape
+        `_flush` loads, so a prefetched cache slots in as `preloaded`."""
+        pad = max(0, min(_bucket(len(ids)), bs) - len(ids))
+        return self._load_cached(em, profile, ids + ids[:1] * pad,
+                                 headroom=len(query_tokens) + 2,
+                                 n_real=len(ids))
+
+    def _flush(self, em: EngineModel, profile: Profile, ids: List[int],
+               query_tokens: Sequence[int], bs: int, preloaded=None):
+        """One decode flush: load (or hit, or take the prefetched) caches,
+        run the query, return logits (len(ids) rows) still on the device;
+        callers read them back when they consume them."""
+        pad = max(0, min(_bucket(len(ids)), bs) - len(ids))
+        fused = self.fused and supports_fused_decode(em.cfg)
+        backend = KOPS.resolve_backend(self.kernels)
+        # releasing the buffers needs exclusive ownership: the LRU would
+        # hand the same tensors to the next hit
+        donate = self.async_h2d and not self.device_cache
+        cache, lock = preloaded if preloaded is not None else \
+            self._load_for(em, profile, ids, query_tokens, bs)
+        q = torch.tensor([list(query_tokens)] * (len(ids) + pad),
+                         dtype=torch.long, device=self.device)
+        # the decode writes this query's k/v into an LRU entry's shared
+        # tensors: one flush at a time enqueues over it, and the stream
+        # runs the decodes in that order
+        with lock or contextlib.nullcontext():
+            logits = self._run_tokens(em, fused, backend, cache, q)
+        if donate:
+            donated = _nbytes(cache)
+            cache.clear()      # the allocator reuses them once the decode ends
+            self._count_xfer(donated=donated)
+        self.attn_dispatches += 1 if fused else len(query_tokens)
+        return logits[:len(ids)]
+
+    def _iter_flushes(self, em: EngineModel, profile: Profile,
+                      item_ids: Sequence[int], query_tokens: Sequence[int],
+                      bs: int):
+        """Yield (start, ids, logits) per flush batch. With `async_h2d` and
+        more than one batch, batch i+1's caches load right after batch i's
+        decode is enqueued and before its logits are read back."""
+        batches = [(s, list(item_ids[s:s + bs]))
+                   for s in range(0, len(item_ids), bs)]
+        prefetch = self.async_h2d and len(batches) > 1
+        pre = None
+        for bi, (s, ids) in enumerate(batches):
+            logits = self._flush(em, profile, ids, query_tokens, bs,
+                                 preloaded=pre)
+            pre = None
+            if prefetch and bi + 1 < len(batches):
+                t0 = time.perf_counter()
+                pre = self._load_for(em, profile, batches[bi + 1][1],
+                                     query_tokens, bs)
+                self._count_xfer(h2d_s=time.perf_counter() - t0)
+            yield s, ids, logits
+
+    def run_filter(self, model_name: str, profile_ratio: float,
+                   item_ids: Sequence[int], query_tokens: Sequence[int],
+                   yes_token: int, no_token: int,
+                   quant: bool = False) -> np.ndarray:
+        """Log-odds per item: logit(yes) - logit(no), prefill skipped."""
+        em = self.models[model_name]
+        profile = Profile(model_name, profile_ratio, quant)
+        out = np.zeros(len(item_ids), np.float32)
+        bs = self._batch_size(profile, item_ids)
+        for s, ids, logits in self._iter_flushes(em, profile, item_ids,
+                                                 query_tokens, bs):
+            lo = (logits[:, yes_token] - logits[:, no_token]).float()
+            out[s:s + len(ids)] = lo.cpu().numpy()
+        return out
+
+    def run_map(self, model_name: str, profile_ratio: float,
+                item_ids: Sequence[int], query_tokens: Sequence[int],
+                value_tokens: Sequence[int], quant: bool = False
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """Greedy value among `value_tokens` + confidence (top-2 margin)."""
+        em = self.models[model_name]
+        profile = Profile(model_name, profile_ratio, quant)
+        vals = np.zeros(len(item_ids), np.int64)
+        confs = np.zeros(len(item_ids), np.float32)
+        bs = self._batch_size(profile, item_ids)
+        vt = torch.tensor(list(value_tokens), dtype=torch.long,
+                          device=self.device)
+        for s, ids, logits in self._iter_flushes(em, profile, item_ids,
+                                                 query_tokens, bs):
+            vlogits = logits[:, vt]                        # (B, n_vals)
+            top2 = torch.topk(vlogits, 2, dim=-1).values
+            vals[s:s + len(ids)] = vt[torch.argmax(vlogits, -1)].cpu().numpy()
+            confs[s:s + len(ids)] = (top2[:, 0] - top2[:, 1]).float() \
+                .cpu().numpy()
+        return vals, confs
+
+
+def _bucket(n: int) -> int:
+    """Round a batch size up to a power of two (callers cap it at the
+    memory-bounded batch size)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_tokens(token_lists: Sequence[Sequence[int]], multiple: int = 16,
+                device="cpu") -> torch.Tensor:
+    n = max(len(t) for t in token_lists)
+    n = (n + multiple - 1) // multiple * multiple
+    out = np.zeros((len(token_lists), n), np.int64)
+    for i, t in enumerate(token_lists):
+        out[i, :len(t)] = t
+    return torch.from_numpy(out).to(device)

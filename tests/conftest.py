@@ -14,6 +14,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 os.environ.setdefault("STRETTO_DEVICE_CACHE", "0")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _bound_jit_mmap_growth():
     """Every XLA CPU executable holds ~3 anonymous mappings (code /

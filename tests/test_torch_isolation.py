@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: importing every `repro_torch` module
+pulls in neither JAX nor any module of the JAX package."""
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _port_modules():
+    sys.path.insert(0, SRC)
+    import repro_torch
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_port_imports_no_jax_and_no_repro():
+    mods = _port_modules()
+    assert "repro_torch.kernels.decode_attention" in mods
+    assert "repro_torch.serving.engine" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {os.path.abspath(SRC)!r})\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ""})
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_never_name_the_jax_package():
+    root = os.path.join(SRC, "repro_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                for i, line in enumerate(fh, 1):
+                    s = line.strip()
+                    if s.startswith(("import ", "from ")) and (
+                            " jax" in s or s.startswith(("import repro.",
+                                                         "from repro."))
+                            or s in ("import repro", "import jax")):
+                        offenders.append(f"{path}:{i}: {s}")
+    assert offenders == []
