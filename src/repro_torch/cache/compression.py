@@ -23,16 +23,18 @@ from repro_torch.models.transformer import _trunk
 
 
 class QueryStats(NamedTuple):
-    mu: torch.Tensor     # (L, KV, G, dk) float32
-    sig2: torch.Tensor   # (L, KV, G, dk) float32
+    mu: torch.Tensor     # (L, KV, G, dk) in the model dtype
+    sig2: torch.Tensor   # (L, KV, G, dk) in the model dtype
 
 
 def calibrate_query_stats(params, cfg: ModelConfig, tokens,
                           tail_frac: float = 0.5) -> QueryStats:
     """Fit per-layer, per-head query Gaussians from calibration data, on
     the trailing `tail_frac` positions (future operator queries arrive
-    after the document). Mean and (population) variance are taken in
-    float32; for float32 models that is the JAX package's computation."""
+    after the document). As in the JAX package, the queries are projected
+    in the model dtype, mean and (population) variance are reduced in
+    float32 (`jnp.mean` / `jnp.var` upcast bfloat16), and the stats come
+    back in the model dtype."""
     _, caches = _trunk(params, cfg, tokens, collect_hidden=True)
     h = caches["h"]                                # (L, B, S, d)
     Ln, B, S, d = h.shape
@@ -41,8 +43,11 @@ def calibrate_query_stats(params, cfg: ModelConfig, tokens,
     wq = params["layers"]["attn"]["wq"]            # (L, d, H*dh)
     q = torch.einsum("lbsd,lde->lbse", h, wq)
     KV, G, dk = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
-    q = q.reshape(Ln, -1, KV, G, dk).float()
-    return QueryStats(q.mean(dim=1), q.var(dim=1, unbiased=False))
+    q = q.reshape(Ln, -1, KV, G, dk)
+    qf = q.float()
+    mu = qf.mean(dim=1)
+    sig2 = (qf - mu[:, None]).square().sum(dim=1) / qf.shape[1]
+    return QueryStats(mu.to(q.dtype), sig2.to(q.dtype))
 
 
 def score_positions(cfg: ModelConfig, cache: Dict[str, Any],

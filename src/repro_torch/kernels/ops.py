@@ -13,9 +13,8 @@ reimporting. A CUDA tensor under `auto` or `cuda` always launches the
 kernel: a failed build or launch raises, and nothing falls back to the
 plain version.
 
-int8 KV caches (with per-token scales) take the `ref` path's up-front
-dequantization; their in-kernel dequantizing CUDA body is not ported yet,
-so `auto`/`cuda` on CUDA int8 caches raise.
+int8 KV caches (with per-token scales) launch the int8 CUDA kernels,
+which dequantise in the kernel; the plain versions dequantise up front.
 """
 from __future__ import annotations
 
@@ -32,7 +31,9 @@ VALID_BACKENDS = ("auto", "cuda", "ref")
 ENV_VAR = "STRETTO_TORCH_KERNELS"
 KERNELS = {
     "decode_query_attention": _da.decode_query_attention,
+    "decode_query_attention_int8": _da.decode_query_attention_int8,
     "decode_attention": _da.decode_attention,
+    "decode_attention_int8": _da.decode_attention_int8,
     "expected_attention_scores": _ea.expected_attention_scores,
 }
 
@@ -67,45 +68,44 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def _dequant(x, scale):
-    return x.float() * scale[..., None].float()
-
-
-def _int8_kernel_missing(what):
-    raise NotImplementedError(
-        f"{what}: the int8 CUDA body is not ported yet; use backend='ref' "
-        f"for int8 KV caches")
-
-
 def decode_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,
                      backend=None, k_scale=None, v_scale=None):
-    """Single-query flash-decode; (B, KV, G, dk) -> (B, KV, G, dv)."""
+    """Single-query flash-decode; (B, KV, G, dk) -> (B, KV, G, dv).
+    With k_scale / v_scale (B, S, KV), k_cache / v_cache are int8."""
+    quant = k_scale is not None
     if use_kernel(backend, q):
-        if k_scale is not None:
-            _int8_kernel_missing("decode_attention")
+        if quant:
+            return _da.decode_attention_int8(q, k_cache, v_cache, k_scale,
+                                             v_scale, lengths, window=window)
         return _da.decode_attention(q, k_cache, v_cache, lengths,
                                     window=window)
-    if k_scale is not None:
-        k_cache = _dequant(k_cache, k_scale)
-        v_cache = _dequant(v_cache, v_scale)
+    window = min(int(window), GLOBAL)
+    if quant:
+        return ref.decode_attention_int8_ref(q, k_cache, v_cache, k_scale,
+                                             v_scale, lengths, window=window)
     return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                    window=min(int(window), GLOBAL))
+                                    window=window)
 
 
 def decode_query_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,
                            backend=None, k_scale=None, v_scale=None):
     """Fused multi-token query decode; (B, Lq, KV, G, dk) ->
-    (B, Lq, KV, G, dv). `lengths` includes the Lq query tokens."""
+    (B, Lq, KV, G, dv). `lengths` includes the Lq query tokens. With
+    k_scale / v_scale (B, S, KV), k_cache / v_cache are int8."""
+    quant = k_scale is not None
     if use_kernel(backend, q):
-        if k_scale is not None:
-            _int8_kernel_missing("decode_query_attention")
+        if quant:
+            return _da.decode_query_attention_int8(
+                q, k_cache, v_cache, k_scale, v_scale, lengths,
+                window=window)
         return _da.decode_query_attention(q, k_cache, v_cache, lengths,
                                           window=window)
-    if k_scale is not None:
-        k_cache = _dequant(k_cache, k_scale)
-        v_cache = _dequant(v_cache, v_scale)
+    window = min(int(window), GLOBAL)
+    if quant:
+        return ref.decode_query_attention_int8_ref(
+            q, k_cache, v_cache, k_scale, v_scale, lengths, window=window)
     return ref.decode_query_attention_ref(q, k_cache, v_cache, lengths,
-                                          window=min(int(window), GLOBAL))
+                                          window=window)
 
 
 def expected_attention_scores(k_cache, mu, sig2, *, backend=None):

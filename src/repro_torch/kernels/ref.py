@@ -1,7 +1,9 @@
 """Plain PyTorch versions of every kernel (the allclose references).
 
 Each function computes what its twin in `repro.kernels.ref` computes,
-with the same layouts, in float32, and returns the query's dtype. The
+with the same layouts, in float32, and returns the query's dtype. Masked
+scores are the finite NEG_INF, so a row that sees no position gets the
+mean of V over all S positions, as in the JAX package. The
 wrappers in `kernels/ops.py` use them for tensors on the CPU, and
 `chip_smoke.py` holds each hand kernel against them on the card.
 """
@@ -52,6 +54,29 @@ def decode_query_attention_ref(q, k_cache, v_cache, lengths, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("blhgs,bshd->blhgd", p, v_cache.float())
     return out.to(q.dtype)
+
+
+def dequantize(x, scale):
+    """int8 rows times their (..., ) float32 scales, in float32."""
+    return x.float() * scale[..., None].float()
+
+
+def decode_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale,
+                              lengths, *, window: int = GLOBAL):
+    """`decode_attention_ref` over int8 K/V with (B, S, KV) scales,
+    dequantised up front (the JAX package's `ref` backend does the same)."""
+    return decode_attention_ref(q, dequantize(k_cache, k_scale),
+                                dequantize(v_cache, v_scale), lengths,
+                                window=window)
+
+
+def decode_query_attention_int8_ref(q, k_cache, v_cache, k_scale, v_scale,
+                                    lengths, *, window: int = GLOBAL):
+    """`decode_query_attention_ref` over int8 K/V with (B, S, KV) scales,
+    dequantised up front."""
+    return decode_query_attention_ref(q, dequantize(k_cache, k_scale),
+                                      dequantize(v_cache, v_scale), lengths,
+                                      window=window)
 
 
 def prefill_attention_ref(q, k, v, *, window: int = GLOBAL,

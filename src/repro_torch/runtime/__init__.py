@@ -1,9 +1,12 @@
 """Stretto runtime of the port: the single execution path for plans.
 
-  kernel.py    — accept/reject/unsure decision rule (numpy)
+  kernel.py    — accept/reject/unsure decision rule (numpy; torch for
+                 the relaxation)
   backend.py   — Backend protocol + Oracle / KVCache / Reference backends
   executor.py  — streaming partitioned cascade executor (StageStats)
   dispatch.py  — flush dispatch: inline / thread pool (STRETTO_DISPATCHER)
+  plan_utils.py — gold plans, gold membership, PipelineData lifting and
+                 selectivity estimates for the planner
 
 Attribute access is lazy (PEP 562), as in the JAX package.
 """
@@ -24,6 +27,11 @@ _EXPORTS = {
     "run_plan": "repro_torch.runtime.executor",
     "iter_plan": "repro_torch.runtime.executor",
     "run_operator": "repro_torch.runtime.executor",
+    "stage_stats_by_engine": "repro_torch.runtime.executor",
+    "gold_plan_for": "repro_torch.runtime.plan_utils",
+    "gold_membership": "repro_torch.runtime.plan_utils",
+    "pipelines_data": "repro_torch.runtime.plan_utils",
+    "estimate_selectivities": "repro_torch.runtime.plan_utils",
     "DEFAULT_COALESCE": "repro_torch.runtime.dispatch",
     "FlushTask": "repro_torch.runtime.dispatch",
     "InlineDispatcher": "repro_torch.runtime.dispatch",

@@ -709,3 +709,21 @@ def _stream_streaming(plan: PhysicalPlan, query: Query, items: Sequence[Any],
         wall_s=active_s + (time.perf_counter() - seg_t0), plan=plan,
         partition_size=None if partition_size is None else part,
         coalesce=coalesce)
+
+
+def stage_stats_by_engine(stage_stats: Sequence[StageStats]
+                          ) -> Dict[str, Dict[str, Any]]:
+    """Exact per-engine execution totals: each stage runs on exactly one
+    engine, so summing its counters by the engine tag partitions the
+    run's totals. Single-engine runs report one "" bucket."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for sg in stage_stats:
+        d = out.setdefault(sg.engine, {"wall_s": 0.0, "n_tuples": 0,
+                                       "n_llm_calls": 0, "kv_bytes": 0,
+                                       "n_batches": 0})
+        d["wall_s"] += sg.wall_s
+        d["n_tuples"] += sg.n_tuples
+        d["n_llm_calls"] += sg.n_llm_calls
+        d["kv_bytes"] += sg.kv_bytes
+        d["n_batches"] += sg.n_batches
+    return out

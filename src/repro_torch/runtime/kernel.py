@@ -1,15 +1,32 @@
 """Shared accept/reject/unsure decision rule (paper Eq. 16, tau -> 0).
 
-The port of `repro.runtime.kernel`, in numpy. The rule is the argmax of
-the three logits [s - thr_hi, thr_lo - s, 0] (not simply `s > thr_hi`:
-learned thresholds may cross, and the argmax is the softmax's tau -> 0
-limit). Maps have no reject branch: a map commits (accept) or defers.
+The port of `repro.runtime.kernel`: `decide` in numpy for the executor,
+`decide_traced` in torch for the relaxation's hard extraction. The rule
+is the argmax of the three logits [s - thr_hi, thr_lo - s, 0] (not simply
+`s > thr_hi`: learned thresholds may cross, and the argmax is the
+softmax's tau -> 0 limit). Maps have no reject branch: a map commits
+(accept) or defers.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+
+
+def decide_traced(scores, thr_hi, thr_lo, is_map: bool):
+    """The rule on torch tensors; thresholds broadcast against `scores`.
+    Returns boolean tensors (accept, reject, unsure) of `scores`' shape.
+    It compares only, so it carries no gradient."""
+    z_acc = scores - thr_hi
+    z_rej = thr_lo - scores
+    if is_map:
+        z_rej = torch.full_like(z_rej, -float("inf"))
+    acc = (z_acc > 0) & (z_acc >= z_rej)
+    rej = (z_rej > 0) & (z_rej > z_acc)
+    uns = ~(acc | rej)
+    return acc, rej, uns
 
 
 def _bucket(n: int) -> int:

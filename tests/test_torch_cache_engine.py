@@ -255,3 +255,44 @@ def test_prune_dominated_matches():
              {"ratio": 0.5, "quality": 0.8, "cost": 2.0},
              {"ratio": 0.8, "quality": 0.7, "cost": 2.5}]
     assert tcomp.prune_dominated(profs) == jcomp.prune_dominated(profs)
+
+
+def test_query_stats_in_bfloat16_match_jax():
+    """A bfloat16 GQA model: both packages project the calibration
+    queries in bfloat16 and return mu / sig2 in bfloat16. Tolerance: one
+    bfloat16 step (2^-8 relative) plus atol 1e-3 for values near 0 (the
+    two packages' float32 reductions can round either side of a bfloat16
+    boundary). The kept-position sets of the same cache, compressed with
+    each package's own stats, are equal."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import transformer as tT
+    fields = dict(name="rand-gqa-bf16", family="dense", n_layers=2,
+                  d_model=64, n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
+                  vocab_size=200, attn_kind="gqa", rope_theta=10_000.0,
+                  dtype="bfloat16")
+    jcfg, tcfg = JModelConfig(**fields), ModelConfig(**fields)
+    jparams = jT.init_params(jcfg, jax.random.PRNGKey(7))
+    tparams = tT.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                 device="cpu")
+    toks = np.random.default_rng(2).integers(3, 200, size=(3, 48))
+    js = jcomp.calibrate_query_stats(jparams, jcfg,
+                                     tokens=jnp.asarray(toks, jnp.int32))
+    ts = tcomp.calibrate_query_stats(tparams, tcfg,
+                                     torch.from_numpy(toks).long())
+    for j, t in ((js.mu, ts.mu), (js.sig2, ts.sig2)):
+        assert j.dtype == jnp.bfloat16 and t.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(j, np.float32),
+                                   rtol=2 ** -8, atol=1e-3)
+    _, jcache = jT.prefill(jparams, jcfg, tokens=jnp.asarray(toks[:1],
+                                                             jnp.int32))
+    item = {k: jcache[k] for k in ("k", "v")}
+    titem = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
+        torch.bfloat16) for k, v in item.items()}
+    for ratio in (0.5, 0.8):
+        jarr, jn = jcomp.compress_item_cache(jcfg, item, js, ratio, 48)
+        tarr, tn = tcomp.compress_item_cache(tcfg, titem, ts, ratio, 48)
+        assert tn == jn
+        np.testing.assert_array_equal(
+            tarr["k"].float().numpy(), np.asarray(jarr["k"], np.float32))

@@ -229,3 +229,64 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     ops.decode_query_attention(*t)                 # plain path on the CPU
     assert ops.launch_counts() == before
 
+
+
+def _quant(x):
+    s = np.max(np.abs(x), -1) / 127.0
+    return np.round(x / np.maximum(s, 1e-9)[..., None]).astype(np.int8), \
+        s.astype(np.float32)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [GLOBAL, 0])
+def test_rows_that_see_no_position_match_pallas(quant, window):
+    """Query rows before position 0 (lengths < Lq), an empty item, and a
+    window of 0 see no cache position. The Pallas kernels (interpret
+    mode) mask with a finite -1e30 and return the mean of V over all S
+    positions for such rows; the port's plain versions, which the CPU
+    path runs and the CUDA kernels are held to, return the same."""
+    rng = np.random.default_rng(13)
+    B, Lq, S, KV, G, dk = 4, 3, 256, 2, 2, 16
+    q = rng.normal(size=(B, Lq, KV, G, dk)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, dk)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, dk)).astype(np.float32)
+    lengths = np.array([S, 1, 2, 0], np.int32)
+    kw_j, kw_t = {}, {}
+    if quant:
+        (k, ks), (v, vs) = _quant(k), _quant(v)
+        kw_j = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        kw_t = dict(k_scale=torch.from_numpy(ks),
+                    v_scale=torch.from_numpy(vs))
+    jargs = [jnp.asarray(a) for a in (q, k, v, lengths)]
+    targs = [torch.from_numpy(a) for a in (q, k, v, lengths)]
+    want = jops.decode_query_attention(*jargs, window=window,
+                                       backend="interpret", **kw_j)
+    got = ops.decode_query_attention(*targs, window=window, **kw_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    want1 = jops.decode_attention(jargs[0][:, 0], *jargs[1:], window=window,
+                                  backend="interpret", **kw_j)
+    got1 = ops.decode_attention(targs[0][:, 0], *targs[1:], window=window,
+                                **kw_t)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=2e-5)
+    # item 3 (length 0) gets exactly the mean of its V rows
+    vf = v.astype(np.float32) * (vs[..., None] if quant else 1.0)
+    np.testing.assert_allclose(got.numpy()[3, 0], np.broadcast_to(
+        vf[3].mean(0)[:, None, :], (KV, G, dk)), atol=2e-5)
+
+
+def test_int8_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(1, 1, 2, 1, 16)).astype(np.float32))
+    k8, ks = (torch.from_numpy(a) for a in _quant(
+        rng.normal(size=(1, 128, 2, 16)).astype(np.float32)))
+    lengths = torch.tensor([100], dtype=torch.int32)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError):
+        da.decode_query_attention_int8(q, k8, k8, ks, ks, lengths)
+    with pytest.raises(ValueError):
+        da.decode_attention_int8(q[:, 0], k8, k8, ks, ks, lengths)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_query_attention(q, k8, k8, lengths, k_scale=ks,
+                                   v_scale=ks, backend="cuda")
+    assert ops.launch_counts() == before
