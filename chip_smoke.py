@@ -9,10 +9,12 @@ Phases, one JSON line each:
   kernel   each hand-written CUDA kernel against its plain PyTorch version
            on the card, at the planted and the stretto-llama-8b shapes:
            max abs error within the stated tolerance, and its time beside
-           the plain version's, the bound and (bf16/f32 decode) one SDPA
+           the plain version's, the bound and (bf16/f32 attention) one SDPA
            call; the decode kernels in float32/bfloat16 and over int8 K/V
            (kernel_edges: rows that see no cache position, and an item's
-           output alone vs in a larger, further-padded batch)
+           output alone vs in a larger, further-padded batch); the prefill
+           kernel (D) also against the blocked `flash_attention`, causal
+           and not, windowed and not, dk != dv, and batch invariance
   planted  the planted sm/lg world (200 items) under a hand-written
            cascade plan through KVCacheBackend + run_plan; inline vs
            threads:2 bit-identical; the same plan on the CPU equal outside
@@ -32,12 +34,29 @@ Phases, one JSON line each:
            stretto-llama-8b registered as "lg" (rungs 0.8 / 0.5 / int8 0.5
            / gold), 32 items of 512 tokens, scan-path flushes, and one
            int8 flush's logits kernel vs plain
+  session_join_planted  the join path: a sem_filter on each side of
+           make_join_corpora (120 + 120 items) and sem_join "same v3"
+           blocked on `category` (SemFrame.sem_join -> Session.plan_tree ->
+           run_tree): EXPLAIN, execute, metrics against gold_tree; then a
+           hand-set TreePlan with compressed stages (lg-kv50 on the right
+           side, lg-pair50 ahead of the gold pair scorer) through
+           Session.run_tree; each plan on the CPU over the card's stored
+           profiles gives the same decisions, item by item and pair by
+           pair, up to scores within a margin of a threshold
+  session_join_llama8b  the same tree through Session(cfg, engine=eng)
+           with stretto-llama-8b as "lg" (ladder 0.5 + gold), 24 + 24
+           items of 512 tokens
+Every profile build (prefill and calibration) runs the prefill kernel D
+in every layer, so D is launched on every Session path.
 Then the kernels line, the nvidia-smi line and, last, the result line.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The kernels line carries, per kernel, the sum of its
-counts over the two Session paths and their scan legs, and each path's
-count. Any failed phase exits non-zero. Without CUDA, or without the
+counts over the Session paths (the quickstart query and the join, planted
+and 8B, with the scan legs and the hand-set join tree), and each path's
+count. Its bound_ms is the larger of the bytes over 3.35 TB/s and the
+flops over the peak rate for the operands' type (989 TFLOP/s on the bf16
+tensor cores, 67 TFLOP/s for float32). Any failed phase exits non-zero. Without CUDA, or without the
 repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -56,6 +75,7 @@ WORK = os.path.join(HERE, "build", "chip_smoke")
 
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+PEAK_BF16_TC_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense
 GLOBAL = 1 << 30
 
 
@@ -94,8 +114,14 @@ def time_ms(torch, fn, flush, iters=20, warmup=3) -> float:
     return t[len(t) // 2]
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, dtype):
+    """The larger of the bytes over the memory rate and the flops over the
+    card's peak rate for the operands' type: the bf16 tensor cores for
+    bfloat16 operands (their products are exact in float32 accumulation,
+    so a float32 reference on them fits that rate), float32 outside the
+    tensor cores for float32 operands."""
+    peak = PEAK_BF16_TC_FLOPS if dtype.itemsize == 2 else PEAK_F32_FLOPS
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -104,8 +130,8 @@ def decode_bound(q, k, v, lengths, window, scale_bytes=0):
     (positions below each item's length inside some row's window) read
     once, with `scale_bytes` per visible (position, head) of dequantisation
     scales (8 for int8 K and V: two float32), q read and the output written
-    once; 4 flops per query row per K or V element of a visible row
-    (float32 FMAs)."""
+    once; 4 flops per query row per K or V element of a visible row, at
+    the rate for q's type."""
     B, Lq, KV, G, dk = q.shape if q.dim() == 5 else \
         (q.shape[0], 1) + tuple(q.shape[1:])
     S, dv = v.shape[1], v.shape[3]
@@ -117,7 +143,29 @@ def decode_bound(q, k, v, lengths, window, scale_bytes=0):
     nbytes = (vis * KV * ((dk + dv) * k.element_size() + scale_bytes)
               + q.numel() * q.element_size() * (1 + dv / dk) + 4 * B)
     flops = vis * KV * Lq * G * 2 * (dk + dv)
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, q.dtype)
+
+
+def prefill_live_pairs(S, window, causal) -> int:
+    """(query, key) position pairs the mask admits, per (item, KV head)."""
+    live = 0
+    for i in range(S):
+        lo = max(0, i - window + 1)
+        live += (i + 1 if causal else S) - lo
+    return live
+
+
+def prefill_bound(q, k, v, window, causal):
+    """Least time for a prefill-attention call on these inputs: q, k, v
+    read once and the output written once; 2 (dk + dv) flops per query
+    row per live key, at the rate for the inputs' type. Also the time of
+    the same flops as float32 FMAs, the way the kernel does them."""
+    B, S, KV, G, dk = q.shape
+    dv = v.shape[-1]
+    esz = q.element_size()
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * KV * G * dv) * esz
+    flops = B * KV * G * prefill_live_pairs(S, window, causal) * 2 * (dk + dv)
+    return bound(nbytes, flops, q.dtype) + (flops / PEAK_F32_FLOPS * 1e3,)
 
 
 # --------------------------------------------------------------------------
@@ -249,6 +297,7 @@ def phase_kernels(torch, flush):
                 if not row["ok"]:
                     die("kernel", f"{name} at {label} Lq={Lq}: error {err}")
     _decode_edge_cases(torch, gen, tol)
+    rows["prefill_attention"] = _prefill_cases(torch, gen, tol, flush)
     ea_cases = [("llama8b", 1, 1024, 8, 4, 128, bf16, True),
                 ("planted-sm", 1, 160, 2, 1, 16, f32, False),
                 ("planted-lg", 1, 160, 4, 1, 24, f32, False)]
@@ -273,14 +322,106 @@ def phase_kernels(torch, flush):
                                   flush)
         nbytes = k.numel() * k.element_size() + 2 * mu.numel() * 4 \
             + B * S * KV * 4
-        row["bound_ms"], row["bound_by"] = bound(nbytes,
-                                                 B * S * KV * G * dk * 4)
+        # mu and sig2 are float32: the float32 rate
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, B * S * KV * G * dk * 4, torch.float32)
         row["library_ms"] = None
         rows["expected_attention_scores"].append(row)
         emit("kernel", **row)
         if not row["ok"]:
             die("kernel", f"expected_attention_scores at {label}: error {err}")
     return rows
+
+
+def _prefill_cases(torch, gen, tol, flush):
+    """Kernel D against the plain version (the attention oracle) and the
+    blocked `flash_attention` at the build shapes: the planted models
+    (B 16, S 160, float32, dk 16 / 24) and stretto-llama-8b (B 4, S 512
+    and 1024, bfloat16), windowed and not; one non-causal and one
+    dk != dv case; and an item's rows alone vs in a larger, further-padded
+    batch (bit-identical). Times at the global shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import flash_attention
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, B, S, KV, G, dk, dv, dtype, window, causal, main-path shape?)
+    cases = [("planted-sm", 16, 160, 2, 1, 16, 16, f32, GLOBAL, True, False),
+             ("planted-lg", 16, 160, 4, 1, 24, 24, f32, GLOBAL, True, False),
+             ("planted-lg-window", 16, 160, 4, 1, 24, 24, f32, 8, True,
+              False),
+             ("llama8b-S512", 4, 512, 8, 4, 128, 128, bf16, GLOBAL, True,
+              True),
+             ("llama8b-S512-window", 4, 512, 8, 4, 128, 128, bf16, 256, True,
+              False),
+             ("llama8b-S1024", 4, 1024, 8, 4, 128, 128, bf16, GLOBAL, True,
+              False),
+             ("llama8b-S1024-window", 4, 1024, 8, 4, 128, 128, bf16, 256,
+              True, False),
+             ("noncausal-G3", 2, 200, 2, 3, 24, 24, f32, GLOBAL, False,
+              False),
+             ("dk-ne-dv", 2, 130, 2, 2, 32, 48, f32, 17, True, False)]
+    out = []
+    for label, B, S, KV, G, dk, dv, dt, window, causal, main in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        q, k, v = rnd(B, S, KV, G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dv)
+
+        def kern():
+            return PA.prefill_attention(q, k, v, window=window,
+                                        causal=causal)
+
+        def plain():
+            return ref.prefill_attention_ref(q, k, v, window=window,
+                                             causal=causal)
+        got, want = kern(), plain()
+        blocked = flash_attention(q.reshape(B, S, KV * G, dk), k, v, window,
+                                  causal=causal).reshape(got.shape)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        err_blocked = float((got.float() - blocked.float()).abs().max())
+        row = dict(kernel="prefill_attention", shape=label, B=B, S=S, KV=KV,
+                   G=G, dk=dk, dv=dv, dtype=str(dt)[6:], window=window,
+                   causal=causal, max_abs_err=err,
+                   max_abs_err_vs_blocked=err_blocked, tol=tol[dt],
+                   main_path_shape=main)
+        row["ok"] = bool(max(err, err_blocked) <= tol[dt]
+                         and math.isfinite(err) and math.isfinite(err_blocked))
+        row["kernel_ms"] = time_ms(torch, kern, flush)
+        row["bound_ms"], row["bound_by"], row["f32_fma_ms"] = \
+            prefill_bound(q, k, v, window, causal)
+        if window == GLOBAL and causal:
+            row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
+            row["blocked_ms"] = time_ms(
+                torch, lambda: flash_attention(q.reshape(B, S, KV * G, dk),
+                                               k, v, window), flush, iters=5)
+            # yardstick: one SDPA call, heads first, K/V shared by G heads
+            qs = q.reshape(B, S, KV * G, dk).transpose(1, 2)
+            ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True), flush)
+        out.append(row)
+        emit("kernel", **row)
+        if not row["ok"]:
+            die("kernel", f"prefill_attention at {label}: error {err} vs the "
+                          f"oracle, {err_blocked} vs the blocked attention")
+    # batch invariance: item 1's first 300 rows alone vs in the S 512 batch
+    q = torch.randn((3, 512, 8, 4, 128), generator=gen, device="cuda").to(bf16)
+    k = torch.randn((3, 512, 8, 128), generator=gen, device="cuda").to(bf16)
+    v = torch.randn((3, 512, 8, 128), generator=gen, device="cuda").to(bf16)
+    same = []
+    for window in (GLOBAL, 100):
+        batched = PA.prefill_attention(q, k, v, window=window)
+        alone = PA.prefill_attention(q[1:2, :300], k[1:2, :300],
+                                     v[1:2, :300], window=window)
+        torch.cuda.synchronize()
+        same.append(bool(torch.equal(alone[0], batched[1, :300])))
+    emit("kernel_edges", kernel="prefill_attention", dtype="bfloat16",
+         batch_invariant=all(same), ok=all(same))
+    if not all(same):
+        die("kernel", f"prefill_attention batch invariance: {same}")
+    return out
 
 
 def _decode_edge_cases(torch, gen, tol):
@@ -524,9 +665,11 @@ def phase_llama8b(torch):
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # ---------------------------------------------------------------
-    # this hand-written plan has no int8 stage: A, B (scan flush) and C
+    # this hand-written plan has no int8 stage: A, B (scan flush), C and
+    # the build's D
     missing = [k for k in ("decode_query_attention", "decode_attention",
-                           "expected_attention_scores") if counts[k] <= 0]
+                           "expected_attention_scores", "prefill_attention")
+               if counts[k] <= 0]
     if missing:
         die("llama8b", f"kernels not launched on this path: {missing}")
     if not np.all(np.isfinite(scan_lo)):
@@ -607,18 +750,18 @@ class _PlanTimer:
         self.P.profile_query, self.P.optimize_query = self.real
 
 
-def _drive_session(torch, sess, items):
-    """The main path through the user's entry points, counts from 0:
-    profiles, EXPLAIN (plan), execute, metrics against gold."""
+def _drive_session(torch, sess, corpora, frame):
+    """A path through the user's entry points, counts from 0: profiles
+    for every corpus, EXPLAIN (plan), execute, metrics against gold."""
     from repro_torch.kernels import ops
     timer = _PlanTimer()
     ops.reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        sess.prepare(items)
+        for items in corpora:
+            sess.prepare(items)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        frame = _frame(sess, items)
         report = frame.explain()
         t2 = time.perf_counter()
         result = frame.execute()
@@ -631,16 +774,17 @@ def _drive_session(torch, sess, items):
         timer.close()
     times = dict(build_s=t1 - t0, plan_s=t2 - t1, **timer.s,
                  execute_s=t3 - t2, execute_wall_s=result.wall_s,
-                 items_per_s=len(items) / max(t3 - t2, 1e-9),
+                 items_per_s=sum(map(len, corpora)) / max(t3 - t2, 1e-9),
                  gold_s=time.perf_counter() - t3)
-    return frame, report, result, metrics, counts, times
+    return report, result, metrics, counts, times
 
 
 def _check_session(phase, report, result, metrics, counts, n_items):
     if counts["decode_query_attention_int8"] <= 0:
         die(phase, f"the Session path launched no int8 query kernel: "
                    f"{counts}")
-    for name in ("decode_query_attention", "expected_attention_scores"):
+    for name in ("decode_query_attention", "expected_attention_scores",
+                 "prefill_attention"):
         if counts[name] <= 0:
             die(phase, f"the Session path launched no {name}: {counts}")
     if not all(any(c.endswith("i8") for c in names)
@@ -671,16 +815,27 @@ def _scan_leg(torch, eng, model, ratios_quant, ids, query_len=1):
     return ops.launch_counts()
 
 
+def _cpu_engine(cfg, root):
+    """The planted models on the CPU over the store the card built."""
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(CacheStore(root), device="cpu")
+    for size in cfg.models:
+        mcfg = syn.planted_config(size)
+        eng.register_model(size, mcfg, syn.make_planted_params(
+            mcfg, seed=cfg.model_seed, device="cpu"))
+    return eng
+
+
 def phase_session_planted(torch):
     """The quickstart query through repro_torch.Session on the card, with
     int8 rungs declared on both planted models."""
     import numpy as np
     from repro_torch.api import Session, SessionConfig
-    from repro_torch.cache.store import CacheStore
     from repro_torch.core.optimizer import PlannerConfig
     from repro_torch.data import synthetic as syn
     from repro_torch.runtime.executor import run_operator
-    from repro_torch.serving.engine import ServingEngine
 
     ds = syn.make_dataset("session", 200, seed=3)
     root = os.path.join(WORK, "session-planted")
@@ -690,19 +845,16 @@ def phase_session_planted(torch):
         planner=PlannerConfig(steps=200, restarts=3), sample_frac=0.25,
         partition_size=64, cache_dir=root)
     sess = Session(cfg)
-    frame, report, result, metrics, counts, times = _drive_session(
-        torch, sess, ds.items)
+    frame = _frame(sess, ds.items)
+    report, result, metrics, counts, times = _drive_session(
+        torch, sess, [ds.items], frame)
     emit("session_explain", text=str(report))
     _check_session("session_planted", report, result, metrics, counts,
                    len(ds.items))
     query, plan = frame.to_query(), result.raw.plan
 
     # the same plan by the port on the CPU, over the same stored profiles
-    cpu_eng = ServingEngine(CacheStore(root), device="cpu")
-    for size in cfg.models:
-        mcfg = syn.planted_config(size)
-        cpu_eng.register_model(size, mcfg, syn.make_planted_params(
-            mcfg, seed=cfg.model_seed, device="cpu"))
+    cpu_eng = _cpu_engine(cfg, root)
     cpu = Session(cfg, engine=cpu_eng, device="cpu").run(plan, query,
                                                          ds.items)
     near = np.zeros(len(ds.items), bool)
@@ -775,8 +927,8 @@ def phase_session_llama8b(torch, params):
         engines=(spec,), planner=PlannerConfig(steps=200, restarts=3)),
         engine=eng)
     torch.cuda.reset_peak_memory_stats()
-    frame, report, result, metrics, counts, times = _drive_session(
-        torch, sess, ds.items)
+    report, result, metrics, counts, times = _drive_session(
+        torch, sess, [ds.items], _frame(sess, ds.items))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit("session_explain", text=str(report))
     _check_session("session_llama8b", report, result, metrics, counts,
@@ -823,6 +975,273 @@ def phase_session_llama8b(torch, params):
     return counts, scan
 
 
+# ---------------------------------------------------------------------------
+# the join path: SemFrame.sem_join -> Session.plan_tree -> run_tree -> gold
+# ---------------------------------------------------------------------------
+
+JOIN = ("same v3", 3, "category")
+SIDE_FILTERS = (("mentions topic 1", 1), ("mentions topic 4", 4))
+
+
+def _join_frame(sess, left, right):
+    (lt, lk), (rt, rk) = SIDE_FILTERS
+    return (sess.frame(left).sem_filter(lt, task_id=lk)
+            .sem_join(sess.frame(right).sem_filter(rt, task_id=rk),
+                      JOIN[0], JOIN[1], on=JOIN[2])
+            .with_guarantees(recall=TARGET, precision=TARGET))
+
+
+def _check_join(phase, result, metrics, counts, gold_may_be_empty=False):
+    """D, C and A launched; recall and precision at the targets against
+    gold_tree. With random weights (8B) the gold join may be empty; then
+    the result must be empty too."""
+    for name in ("prefill_attention", "expected_attention_scores",
+                 "decode_query_attention"):
+        if counts[name] <= 0:
+            die(phase, f"the join path launched no {name}: {counts}")
+    if metrics["n_gold"] == 0 and gold_may_be_empty:
+        if metrics["n_result"] != 0:
+            die(phase, f"the gold join is empty but the result is not: "
+                       f"{metrics}")
+    elif metrics["n_gold"] <= 0:
+        die(phase, f"the gold join is empty: {metrics}")
+    elif metrics["recall"] < TARGET or metrics["precision"] < TARGET:
+        die(phase, f"guarantees missed against gold_tree: {metrics}")
+    if not result.stage_stats:
+        die(phase, "the join executed no stage")
+
+
+def _role_near(backend, plan, role, items):
+    """Of these tuples of one role, those whose card score at some stage
+    of the role's plan sits within MARGIN of a threshold that stage
+    applies."""
+    import numpy as np
+    from repro_torch.runtime.executor import run_operator
+    near = np.zeros(len(items), bool)
+    if not items:
+        return near
+    ops_ = plan.queries[role].semantic_ops
+    for st in plan.roles[role].stages:
+        s = np.asarray(run_operator(backend, ops_[st.logical_idx],
+                                    st.op_name, items).scores)
+        thrs = [0.0] if st.is_gold else [
+            x for x in ((st.thr_hi,) if st.is_map
+                        else (st.thr_hi, st.thr_lo)) if math.isfinite(x)]
+        for x in thrs:
+            near |= np.abs(s - x) < MARGIN
+    return near
+
+
+def _tree_card_vs_cpu(phase, backend, plan, card, cpu, left, right):
+    """One TreePlan's card run against its CPU run, decision by decision.
+    Every side item whose decision differs, and every pair both runs
+    scored whose decision differs, must have a card score within MARGIN
+    of a threshold its role's plan applies; a pair only one run scored
+    must have a side item whose decision differs. Where every decision is
+    equal, the integer StageStats must be too. Returns (all equal, the
+    number of differing tuples near a threshold per role)."""
+    import numpy as np
+    n_near = {}
+    differing_ids = set()
+    for role, items in (("left", left), ("right", right)):
+        a, c = card.roles[role].accepted, cpu.roles[role].accepted
+        idx = np.flatnonzero(a != c)
+        diff = [items[i] for i in idx]
+        near = _role_near(backend, plan, role, diff)
+        if not near.all():
+            die(phase, f"{role} decisions differ on the card and the CPU "
+                       f"with no score within {MARGIN} of a threshold: ids "
+                       f"{[it.item_id for it in diff]}")
+        n_near[role] = len(diff)
+        differing_ids |= {it.item_id for it in diff}
+    a_ids, c_ids = set(card.pair_ids), set(cpu.pair_ids)
+    c_scored = {p.item_id for p in cpu.pair_items}
+    a_scored = {p.item_id for p in card.pair_items}
+    both = [p for p in card.pair_items if p.item_id in c_scored
+            and (p.item_id in a_ids) != (p.item_id in c_ids)]
+    near = _role_near(backend, plan, "pair", both)
+    if not near.all():
+        die(phase, f"pair decisions differ on the card and the CPU with no "
+                   f"score within {MARGIN} of a threshold: "
+                   f"{[p.item_id for p in both]}")
+    unexplained = [pid for pid in a_scored ^ c_scored
+                   if not set(pid) & differing_ids]
+    if unexplained:
+        die(phase, f"pairs scored by one run only, with no side decision "
+                   f"differing: {unexplained[:8]}")
+    n_near["pair"] = len(both)
+    same = (not any(n_near.values()) and a_scored == c_scored
+            and card.pair_ids == cpu.pair_ids)
+    if same and _ints(card) != _ints(cpu):
+        die(phase, f"integer StageStats differ: {_ints(card)} vs "
+                   f"{_ints(cpu)}")
+    return same, n_near
+
+
+def _hand_tree(plan):
+    """The planned TreePlan with hand-set role stages: a compressed rung
+    ahead of gold on the right side and, on the pair cascade, kernel A
+    over both sides' 50 % caches ahead of the gold pair scorer. The
+    thresholds sit where this seeded world's compressed scores of gold
+    positives and negatives do not overlap, so the early decisions agree
+    with gold and the rest reach the gold stage."""
+    import dataclasses
+    from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
+
+    def role(name, stages):
+        planned = plan.roles[name]
+        return PhysicalPlan([PhysicalPlanStage(*st) for st in stages],
+                            planned.relational, 0.0, 1.0, 1.0, True,
+                            post_relational=planned.post_relational)
+    return dataclasses.replace(plan, roles={
+        "left": role("left", [(0, 0, "lg-kv00", 0.0, 0.0, False, True, 1.0)]),
+        "right": role("right", [
+            (0, 0, "lg-kv50", 3.0, -1.0, False, False, 0.5),
+            (0, 1, "lg-kv00", 0.0, 0.0, False, True, 1.0)]),
+        "pair": role("pair", [
+            (0, 0, "lg-pair50", 5.5, -5.5, False, False, 0.5),
+            (0, 1, "lg-pair00", 0.0, 0.0, False, True, 1.0)])})
+
+
+def phase_session_join_planted(torch):
+    """The join tree through repro_torch.Session on the card over the
+    planted models, planned and under a hand-set plan with compressed
+    side and pair stages; each plan's CPU run over the card's stored
+    profiles must give the same decisions, up to scores at a threshold."""
+    from repro_torch.api import Session, SessionConfig
+    from repro_torch.api.result import JoinResult
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+
+    left, right = syn.make_join_corpora(n_left=120, n_right=120, seed=0)
+    root = os.path.join(WORK, "join-planted")
+    cfg = SessionConfig(
+        profile_ratios=(0.0, 0.3, 0.5, 0.8), sm_ratios=(0.8, 0.5, 0.0),
+        lg_ratios=(0.8, 0.5, 0.3),
+        planner=PlannerConfig(steps=200, restarts=3), sample_frac=0.25,
+        partition_size=64, cache_dir=root)
+    sess = Session(cfg)
+    report, result, metrics, counts, times = _drive_session(
+        torch, sess, [left.items, right.items],
+        _join_frame(sess, left.items, right.items))
+    emit("session_explain", text=str(report))
+    _check_join("session_join_planted", result, metrics, counts)
+    plan = result.raw.plan
+
+    # the hand-set plan on the card, counts from 0
+    hand = _hand_tree(plan)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hand_run = sess.run_tree(hand, left.items, right.items)
+    torch.cuda.synchronize()
+    hand_s = time.perf_counter() - t0
+    hand_counts = ops.launch_counts()
+    hand_metrics = JoinResult(sess, left.items, right.items,
+                              hand_run).metrics()
+    if hand_counts["decode_query_attention"] <= 0:
+        die("session_join_planted", f"the hand-set tree launched no "
+                                    f"decode_query_attention: {hand_counts}")
+    if (hand_metrics["n_gold"] <= 0 or hand_metrics["recall"] < TARGET
+            or hand_metrics["precision"] < TARGET):
+        die("session_join_planted", f"the hand-set tree missed its "
+                                    f"targets against gold: {hand_metrics}")
+    early = [s for s in hand_run.roles["pair"].stage_stats
+             if s.op_name == "lg-pair50"]
+    if not early or early[0].n_llm_calls <= 0:
+        die("session_join_planted", "the compressed pair stage scored "
+                                    "no pair on the card")
+
+    # each plan by the port on the CPU, over the same stored profiles
+    cpu_eng = _cpu_engine(cfg, root)
+    cpu_sess = Session(cfg, engine=cpu_eng, device="cpu")
+    checks = {}
+    for name, tree, card in (("planned", plan, result.raw),
+                             ("hand", hand, hand_run)):
+        cpu = cpu_sess.run_tree(tree, left.items, right.items)
+        checks[name] = _tree_card_vs_cpu(
+            "session_join_planted", sess.backend, tree, card, cpu,
+            left.items, right.items)
+    emit("session_join_planted", ok=True, items=[len(left.items),
+                                                 len(right.items)],
+         **times, planning_time_s=report.planning_time_s,
+         stages={role: [s.op_name for s in rep.stages]
+                 for role, rep in report.sections},
+         split=report.split, est_pairs=report.est_pairs,
+         feasible=report.feasible, recall_bound=report.recall_bound,
+         precision_bound=report.precision_bound, metrics=metrics,
+         pairs_scored=len(result.pair_items), pairs=len(result.pair_ids),
+         launches=counts,
+         hand_stages={r: [s.op_name for s in p.stages]
+                      for r, p in hand.roles.items()},
+         hand_execute_s=hand_s, hand_metrics=hand_metrics,
+         hand_launches=hand_counts,
+         cpu_all_equal={k: v[0] for k, v in checks.items()},
+         n_differing_near_margin={k: v[1] for k, v in checks.items()},
+         margin=MARGIN,
+         stage_stats=[s.as_dict() for s in result.stage_stats],
+         hand_stage_stats=[s.as_dict() for s in hand_run.stage_stats])
+    sess.close()
+    cpu_sess.close()
+    del sess, cpu_sess, cpu_eng
+    torch.cuda.empty_cache()
+    return counts, hand_counts
+
+
+JOIN_8B_ITEMS, JOIN_8B_LEN = 24, 512
+
+
+def phase_session_join_llama8b(torch, params):
+    """The join tree through Session(cfg, engine=eng) with
+    stretto-llama-8b (full width, random weights) registered as "lg":
+    ladder 0.5 + gold, two corpora of 24 items of 512 tokens."""
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.configs.stretto_llama_8b import CONFIG as cfg8
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import ServingEngine
+
+    left = syn.make_dataset("join8b-left", JOIN_8B_ITEMS,
+                            seq_len=JOIN_8B_LEN, seed=7)
+    right = syn.make_dataset("join8b-right", JOIN_8B_ITEMS,
+                             seq_len=JOIN_8B_LEN, seed=8)
+    for it in right.items:            # disjoint ids, as make_join_corpora
+        it.item_id += 1_000_000
+    eng = ServingEngine(CacheStore(os.path.join(WORK, "join-8b")),
+                        device="cuda")
+    eng.register_model("lg", cfg8, params)
+    spec = EngineSpec("llama8b", models=("lg",), sm_ratios=(),
+                      lg_ratios=(0.5,), include_cheap=False, prefill_batch=4)
+    sess = Session(SessionConfig(
+        engines=(spec,), planner=PlannerConfig(steps=200, restarts=3)),
+        engine=eng)
+    torch.cuda.reset_peak_memory_stats()
+    report, result, metrics, counts, times = _drive_session(
+        torch, sess, [left.items, right.items],
+        _join_frame(sess, left.items, right.items))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("session_explain", text=str(report))
+    _check_join("session_join_llama8b", result, metrics, counts,
+                gold_may_be_empty=True)
+    emit("session_join_llama8b", ok=True,
+         items=[len(left.items), len(right.items)], item_tokens=JOIN_8B_LEN,
+         **times, planning_time_s=report.planning_time_s,
+         stages={role: [s.op_name for s in rep.stages]
+                 for role, rep in report.sections},
+         split=report.split, est_pairs=report.est_pairs,
+         feasible=report.feasible, metrics=metrics,
+         pairs_scored=len(result.pair_items), pairs=len(result.pair_ids),
+         launches=counts, peak_mem_gb=peak_gb,
+         build_steps_s=eng.build_seconds,
+         stage_stats=[s.as_dict() for s in result.stage_stats])
+    sess.close()
+    del sess, eng
+    shutil.rmtree(os.path.join(WORK, "join-8b"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -836,6 +1255,8 @@ KERNEL_META = {
     "expected_attention_scores": (
         "src/repro_torch/csrc/expected_attention.cu",
         "src/repro/kernels/expected_attention.py:38"),
+    "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
+                          "src/repro/kernels/prefill_attention.py:28"),
 }
 
 
@@ -852,6 +1273,7 @@ def main() -> int:
         return 1
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK, exist_ok=True)
+    t_start = time.perf_counter()
     try:
         smi_line = phase_device(torch)
         phase_build()
@@ -863,8 +1285,12 @@ def main() -> int:
         paths = {}
         paths["session_planted"], paths["session_planted_scan"] = \
             phase_session_planted(torch)
+        paths["session_join_planted"], paths["session_join_planted_hand"] \
+            = phase_session_join_planted(torch)
         paths["session_llama8b"], paths["session_llama8b_scan"] = \
             phase_session_llama8b(torch, params)
+        paths["session_join_llama8b"] = phase_session_join_llama8b(torch,
+                                                                   params)
         del params
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -883,6 +1309,7 @@ def main() -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    emit("summary", ok=True, seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

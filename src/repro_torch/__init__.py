@@ -11,7 +11,8 @@ JAX nor `repro`. The documented entry point is the declarative API::
                   .execute())
 
 Layers:
-  repro_torch.api      — Session / SemFrame / EXPLAIN / streaming results
+  repro_torch.api      — Session / SemFrame / JoinFrame / EXPLAIN /
+                         streaming results
   repro_torch.configs  — ModelConfig + stretto-llama-8b
   repro_torch.models   — the GQA decoder (prefill, decode, fused decode)
   repro_torch.data     — planted corpora and constructed weights
@@ -35,6 +36,8 @@ _EXPORTS = {
     "SessionConfig": "repro_torch.api",
     "EngineSpec": "repro_torch.api",
     "SemFrame": "repro_torch.api",
+    "JoinFrame": "repro_torch.api",
+    "JoinResult": "repro_torch.api",
     "ExplainReport": "repro_torch.api",
     "QueryResult": "repro_torch.api",
     "ResultStream": "repro_torch.api",
@@ -44,6 +47,7 @@ _EXPORTS = {
     "SemFilter": "repro_torch.core.logical",
     "SemMap": "repro_torch.core.logical",
     "RelFilter": "repro_torch.core.logical",
+    "SemJoin": "repro_torch.core.logical",
 }
 
 __all__ = sorted(_EXPORTS) + ["__version__"]

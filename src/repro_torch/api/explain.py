@@ -1,7 +1,7 @@
 """EXPLAIN / EXPLAIN ANALYZE: structured plan report + table renderer.
 
-The port of `repro.api.explain` (ExplainReport; the tree-shaped report
-waits with join trees, and the scheduler / remote footers with their
+The port of `repro.api.explain` (ExplainReport and the tree-shaped
+TreeExplainReport; the scheduler / remote footers wait with their
 subsystems).
 
 `SemFrame.explain()` returns an ExplainReport — the logical plan, the
@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.logical import (Query, RelFilter, SemAgg, SemFilter,
                                       SemJoin, SemMap, SemTopK)
-from repro_torch.core.physical import PhysicalPlan
+from repro_torch.core.physical import TREE_ROLES, PhysicalPlan, TreePlan
 
 
 @dataclass(frozen=True)
@@ -332,6 +332,120 @@ class ExplainReport:
                         f"  engine {eng or '--'}: wall_s={wall:.2f} "
                         f"tuples={tuples} llm_calls={llm} "
                         f"kvMB={kv / 1e6:.1f}")
+        return "\n".join(out)
+
+    def __str__(self) -> str:
+        return self.render()
+
+
+@dataclass(frozen=True)
+class TreeExplainReport:
+    """Tree-shaped EXPLAIN for a planned semantic join.
+
+    One section per role pipeline (left side, right side, pair cascade)
+    rendered under a tree spine, around the *joint* header: the
+    query-level bounds the grouped relaxation certifies and the budget
+    split — each role's achieved sample-level (recall, precision) under
+    the jointly chosen thresholds, i.e. where the query's error budget
+    actually went. `JoinResult.explain_analyze()` re-renders it with
+    each role's measured execution telemetry (`with_measured`)."""
+    n_left: int
+    n_right: int
+    est_pairs: int
+    join_desc: str
+    target_recall: float
+    target_precision: float
+    recall_bound: float                 # joint Bayesian lower bounds
+    precision_bound: float
+    feasible: bool
+    est_cost_s: float
+    planning_time_s: float
+    # (role, sample_recall, sample_precision) — the budget allocation
+    split: Tuple[Tuple[str, float, float], ...]
+    sections: Tuple[Tuple[str, ExplainReport], ...]
+    measured_runtime_s: Optional[float] = None
+    measured_wall_s: Optional[float] = None
+    measured_pairs: Optional[int] = None      # pairs actually scored
+    measured_accepted: Optional[int] = None   # pairs in the result
+
+    @property
+    def analyzed(self) -> bool:
+        return self.measured_runtime_s is not None
+
+    @classmethod
+    def from_plan(cls, session, plan: TreePlan, n_left: int,
+                  n_right: int) -> "TreeExplainReport":
+        n_role = {"left": n_left, "right": n_right, "pair": plan.est_pairs}
+        sections = tuple(
+            (role, ExplainReport.from_plan(session, plan.queries[role],
+                                           range(n_role[role]),
+                                           plan.roles[role]))
+            for role in TREE_ROLES)
+        q = plan.queries["pair"]
+        return cls(
+            n_left=n_left, n_right=n_right, est_pairs=plan.est_pairs,
+            join_desc=_describe_node(plan.join),
+            target_recall=q.target_recall,
+            target_precision=q.target_precision,
+            recall_bound=plan.recall_bound,
+            precision_bound=plan.precision_bound,
+            feasible=plan.feasible, est_cost_s=plan.est_cost,
+            planning_time_s=plan.planning_time_s,
+            split=tuple((r, *plan.split[r]) for r in TREE_ROLES
+                        if r in plan.split),
+            sections=sections)
+
+    def with_measured(self, result) -> "TreeExplainReport":
+        """EXPLAIN ANALYZE for a tree: each role section gets its own
+        run's measured telemetry (`result` is a runtime TreeResult)."""
+        sections = tuple((role, rep.with_measured(result.roles[role]))
+                         for role, rep in self.sections)
+        return replace(self, sections=sections,
+                       measured_runtime_s=result.runtime_s,
+                       measured_wall_s=result.wall_s,
+                       measured_pairs=len(result.pair_items),
+                       measured_accepted=len(result.pair_ids))
+
+    def rows(self) -> List[Dict[str, Any]]:
+        """Every role's stage table as dicts, with a `role` column."""
+        return [dict(r, role=role)
+                for role, rep in self.sections for r in rep.rows()]
+
+    def render(self) -> str:
+        verb = "EXPLAIN ANALYZE" if self.analyzed else "EXPLAIN"
+        verdict = "feasible" if self.feasible else "INFEASIBLE on sample"
+        out = [
+            f"{verb} — semantic join tree over {self.n_left} x "
+            f"{self.n_right} items, guarantees R>={self.target_recall} "
+            f"P>={self.target_precision}",
+            self.join_desc,
+            f"joint bounds R>={self.recall_bound:.3f} "
+            f"P>={self.precision_bound:.3f} ({verdict}), "
+            f"est_cost={self.est_cost_s:.2f}s, "
+            f"est_pairs~{self.est_pairs}, "
+            f"planned in {self.planning_time_s:.2f}s",
+            "budget split across pipelines (sample R/P at the jointly "
+            "chosen thresholds):",
+        ]
+        out += [f"  {role:>5}: R={rec:.3f} P={prec:.3f}"
+                for role, rec, prec in self.split]
+        for i, (role, rep) in enumerate(self.sections):
+            last = i == len(self.sections) - 1
+            head, bar = ("└─ ", "   ") if last else ("├─ ", "│  ")
+            if role == "pair":
+                out.append(f"{head}pair (~{self.est_pairs} blocked "
+                           f"survivor pairs)")
+            else:
+                n = self.n_left if role == "left" else self.n_right
+                out.append(f"{head}{role} ({n} items)")
+            out += [bar + line for line in rep.render().splitlines()]
+        if self.analyzed:
+            out.append(
+                f"measured: runtime_s={self.measured_runtime_s:.2f} "
+                f"(operator-time sum) wall_s={self.measured_wall_s:.2f} "
+                f"(elapsed, 3 runs + pairing) "
+                f"pairs_scored={self.measured_pairs} "
+                f"accepted={self.measured_accepted}")
         return "\n".join(out)
 
     def __str__(self) -> str:

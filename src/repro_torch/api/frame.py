@@ -1,7 +1,7 @@
 """SemFrame: a lazy, immutable semantic-query builder.
 
-The port of `repro.api.frame` (SemFrame; the two-corpus JoinFrame waits
-with join trees, and `sem_join` raises).
+The port of `repro.api.frame`: SemFrame, and the two-corpus JoinFrame
+that `SemFrame.sem_join` builds.
 
 Every chain method returns a *new* frame — frames are never mutated, so a
 partially built chain can be reused and branched freely::
@@ -31,11 +31,12 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
 
-from repro_torch.core.logical import (Query, RelFilter, SemAgg, SemFilter,
+from repro_torch.core.logical import (JoinNode, PipelineLeaf, Query,
+                                      RelFilter, SemAgg, SemFilter, SemJoin,
                                       SemMap, SemTopK)
 from repro_torch.core.physical import PhysicalPlan
 
-from repro_torch.api.session import _UNSET, _not_ported
+from repro_torch.api.session import _UNSET
 
 
 class SemFrame:
@@ -103,9 +104,29 @@ class SemFrame:
         return self._with(RelFilter(column, op, value))
 
     def sem_join(self, other: Any, text: str, task_id: int, *,
-                 on: Optional[str] = None, modality: str = "text"):
-        """Two-corpus semantic joins are not ported yet."""
-        _not_ported("SemFrame.sem_join (join trees)")
+                 on: Optional[str] = None,
+                 modality: str = "text") -> "JoinFrame":
+        """Join this frame against a second corpus on an LLM-evaluated
+        pair predicate (`task_id` names the extraction task whose
+        agreement defines a match). `other` is another SemFrame (its
+        chained operators become the right side's pipeline) or a bare
+        item sequence / Dataset. `on` optionally names a structured row
+        column both corpora carry: candidate pairs are then blocked on
+        equality of that column before any LLM stage prices them.
+
+        Returns a JoinFrame — the two-corpus builder whose terminal
+        verbs plan through `Session.plan_tree` (one grouped relaxation
+        allocating the recall/precision budget across the left / right /
+        pair pipelines) and execute through the tree runtime."""
+        if isinstance(other, SemFrame):
+            right_items, right_nodes = other._items, other._nodes
+        else:
+            right_items = getattr(other, "items", other)
+            right_nodes = ()
+        return JoinFrame(self._session, self._items, right_items,
+                         self._nodes, tuple(right_nodes),
+                         SemJoin(text, task_id, on, modality), (),
+                         self._recall, self._precision)
 
     def with_guarantees(self, recall: Optional[float] = None,
                         precision: Optional[float] = None) -> "SemFrame":
@@ -193,3 +214,110 @@ class SemFrame:
         return (f"SemFrame({len(self._items)} items, "
                 f"[{', '.join(parts)}], R>={q.target_recall}, "
                 f"P>={q.target_precision})")
+
+
+class JoinFrame:
+    """Lazy two-corpus semantic join, bound to a Session.
+
+    Built by `SemFrame.sem_join`; immutable like SemFrame. Compiles to a
+    logical `JoinNode` tree (each side a PipelineLeaf) that
+    `Session.plan_tree` optimizes *jointly*: one grouped gradient
+    relaxation places thresholds for the left side, right side, and
+    pairing cascade at once, splitting the query-level recall/precision
+    budget across all three pipelines (visible in `.explain()`).
+
+    Terminal verbs:
+      .explain()  — the tree-shaped TreeExplainReport (per-role cascade
+                    tables around the joint bounds + budget split)
+      .execute()  — run left side, right side, then the pair cascade
+                    over blocked survivor pairs; returns a JoinResult
+                    with lazy `.metrics()` against the gold join
+    """
+
+    __slots__ = ("_session", "_left_items", "_right_items", "_left_nodes",
+                 "_right_nodes", "_join", "_pair_nodes", "_recall",
+                 "_precision")
+
+    def __init__(self, session, left_items: Sequence[Any],
+                 right_items: Sequence[Any], left_nodes: Tuple[Any, ...],
+                 right_nodes: Tuple[Any, ...], join: SemJoin,
+                 pair_nodes: Tuple[Any, ...] = (),
+                 recall: Optional[float] = None,
+                 precision: Optional[float] = None):
+        self._session = session
+        self._left_items = left_items
+        self._right_items = right_items
+        self._left_nodes = tuple(left_nodes)
+        self._right_nodes = tuple(right_nodes)
+        self._join = join
+        self._pair_nodes = tuple(pair_nodes)
+        self._recall = recall
+        self._precision = precision
+
+    # ---------------- chainable builders ----------------
+
+    def filter(self, column: str, op: str, value: Any) -> "JoinFrame":
+        """Relational predicate over the joined pair rows (``left_`` /
+        ``right_`` prefixed columns, plus bare names for shared columns
+        whose values agree on both sides). Runs in the pair cascade."""
+        return JoinFrame(self._session, self._left_items,
+                         self._right_items, self._left_nodes,
+                         self._right_nodes, self._join,
+                         self._pair_nodes + (RelFilter(column, op, value),),
+                         self._recall, self._precision)
+
+    def with_guarantees(self, recall: Optional[float] = None,
+                        precision: Optional[float] = None) -> "JoinFrame":
+        """Declare end-to-end quality targets for the whole join — the
+        planner allocates them across the tree's pipelines."""
+        return JoinFrame(
+            self._session, self._left_items, self._right_items,
+            self._left_nodes, self._right_nodes, self._join,
+            self._pair_nodes,
+            self._recall if recall is None else float(recall),
+            self._precision if precision is None else float(precision))
+
+    # ---------------- compilation ----------------
+
+    def to_tree(self) -> JoinNode:
+        """Compile to the internal logical join tree."""
+        return JoinNode(PipelineLeaf(self._left_nodes),
+                        PipelineLeaf(self._right_nodes),
+                        self._join, self._pair_nodes)
+
+    def plan(self):
+        """The jointly optimized TreePlan (memoized by the session)."""
+        return self._session.plan_tree(
+            self.to_tree(), self._left_items, self._right_items,
+            target_recall=0.9 if self._recall is None else self._recall,
+            target_precision=0.9 if self._precision is None
+            else self._precision)
+
+    # ---------------- terminal verbs ----------------
+
+    def explain(self):
+        """Plan without executing: the tree-shaped report — joint
+        bounds, the per-pipeline budget split, and each role's cascade
+        table."""
+        from repro_torch.api.explain import TreeExplainReport
+        return TreeExplainReport.from_plan(
+            self._session, self.plan(), len(self._left_items),
+            len(self._right_items))
+
+    def execute(self, *, partition_size=_UNSET, coalesce=_UNSET,
+                dispatcher=_UNSET):
+        """Plan + execute the tree; returns a JoinResult."""
+        from repro_torch.api.result import JoinResult
+        raw = self._session.run_tree(
+            self.plan(), self._left_items, self._right_items,
+            partition_size=partition_size, coalesce=coalesce,
+            dispatcher=dispatcher)
+        return JoinResult(self._session, self._left_items,
+                          self._right_items, raw)
+
+    def __repr__(self) -> str:
+        return (f"JoinFrame({len(self._left_items)} x "
+                f"{len(self._right_items)} items, "
+                f"join={self._join.text!r}, on={self._join.on!r}, "
+                f"R>={0.9 if self._recall is None else self._recall}, "
+                f"P>={0.9 if self._precision is None else self._precision})")

@@ -1,7 +1,7 @@
 """Query results: enriched wrapper over the runtime's RuntimeResult.
 
-The port of `repro.api.result` (QueryResult and ResultStream; JoinResult
-waits with join trees).
+The port of `repro.api.result` (QueryResult, JoinResult and
+ResultStream).
 
 QueryResult delegates the raw execution fields (`accepted`, `map_values`,
 `stage_stats`, ...) and adds the query-level conveniences the examples
@@ -189,6 +189,97 @@ class QueryResult:
                 f"{self.accepted.size} accepted, "
                 f"runtime={self.runtime_s:.2f}s, "
                 f"partitions={self.n_partitions})")
+
+
+class JoinResult:
+    """Result of executing a two-corpus semantic join (a JoinFrame).
+
+    Wraps the runtime TreeResult: one RuntimeResult per role (left /
+    right side cascades, pair cascade over the blocked survivor pairs)
+    plus the accepted ``(left_id, right_id)`` pairs. `.metrics()`
+    compares the pair-id set against the gold join — both sides' gold
+    plans and the gold pair scorer — memoized by the Session so it runs
+    at most once per (corpora, tree)."""
+
+    def __init__(self, session, left_items: Sequence[Any],
+                 right_items: Sequence[Any], raw):
+        self.session = session
+        self.left_items = left_items
+        self.right_items = right_items
+        self.raw = raw                       # runtime.tree.TreeResult
+        self._metrics_cache: Optional[Dict[str, float]] = None
+
+    # ---------------- raw execution fields ----------------
+
+    @property
+    def pair_ids(self) -> List[Any]:
+        """Accepted (left_id, right_id) tuples, deterministic order."""
+        return self.raw.pair_ids
+
+    @property
+    def pair_items(self) -> List[Any]:
+        """The blocked survivor pair corpus the pair cascade scored."""
+        return self.raw.pair_items
+
+    @property
+    def stage_stats(self) -> List[StageStats]:
+        """Merged tree telemetry: every role's stages under tree-unique
+        logical indices (tiles exactly like single-pipeline stats)."""
+        return self.raw.stage_stats
+
+    @property
+    def runtime_s(self) -> float:
+        return self.raw.runtime_s
+
+    @property
+    def wall_s(self) -> float:
+        return self.raw.wall_s
+
+    @property
+    def n_llm_tuples(self) -> int:
+        return self.raw.n_llm_tuples
+
+    def role(self, name: str) -> RuntimeResult:
+        """One role's raw RuntimeResult ('left' | 'right' | 'pair')."""
+        return self.raw.roles[name]
+
+    # ---------------- conveniences ----------------
+
+    def matches(self) -> List[Any]:
+        """The accepted PairItems, in deterministic left-major order."""
+        acc = self.raw.roles["pair"].accepted
+        return [p for p, ok in zip(self.raw.pair_items, acc) if ok]
+
+    def gold(self):
+        """The gold tree execution for the same (corpora, tree) —
+        memoized by the session."""
+        return self.session.gold_tree(self.raw.plan, self.left_items,
+                                      self.right_items)
+
+    def metrics(self) -> Dict[str, float]:
+        """Pair-id-set recall / precision / F1 against the gold join
+        (computed lazily, gold runs at most once)."""
+        if self._metrics_cache is None:
+            from repro_torch.runtime.tree import evaluate_pairs
+            self._metrics_cache = evaluate_pairs(self.raw, self.gold())
+        return self._metrics_cache
+
+    def explain_analyze(self):
+        """Tree-shaped EXPLAIN ANALYZE: the planned TreeExplainReport
+        with each role's measured execution telemetry filled in."""
+        from repro_torch.api.explain import TreeExplainReport
+        report = TreeExplainReport.from_plan(
+            self.session, self.raw.plan, len(self.left_items),
+            len(self.right_items))
+        return report.with_measured(self.raw)
+
+    def __len__(self) -> int:
+        return len(self.raw.pair_ids)
+
+    def __repr__(self) -> str:
+        return (f"JoinResult({len(self.raw.pair_ids)} pairs of "
+                f"{len(self.raw.pair_items)} scored, "
+                f"runtime={self.runtime_s:.2f}s)")
 
 
 class ResultStream(Iterator[PartitionResult]):

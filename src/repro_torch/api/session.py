@@ -13,10 +13,10 @@ caller says otherwise, as every entry point of the port): on the card its
 decode flushes and profile scoring launch the hand-written CUDA kernels,
 and a missing card raises instead of running on the CPU.
 
-Not ported yet (each raises NotImplementedError and is queued in ROADMAP
-queue 1): engine pools (several EngineSpecs), remote engine members
-(`EngineSpec.address`), tenants and the query scheduler, and join trees
-(`plan_tree` / `run_tree` / `gold_tree`).
+Join trees go through `plan_tree` / `run_tree` / `gold_tree` (and
+`SemFrame.sem_join`). Not ported yet (each raises NotImplementedError and
+is queued in ROADMAP queue 1): engine pools (several EngineSpecs), remote
+engine members (`EngineSpec.address`), tenants and the query scheduler.
 
 The Session compiles to, and never bypasses, the internal layer: plans
 come from `core.planner.plan_query`, execution goes through
@@ -50,8 +50,7 @@ _UNSET = object()     # "inherit the session default" sentinel
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1: pools, "
-        f"the scheduler, remote members and join trees come in later "
-        f"slices)")
+        f"the scheduler and remote members come in later slices)")
 
 
 @dataclass(frozen=True)
@@ -622,16 +621,78 @@ class Session:
                 self._gold_cache[key] = got
             return got
 
+    # ---------------- join trees ----------------
+
+    def plan_tree(self, tree, left_items: Sequence[Any],
+                  right_items: Sequence[Any], *,
+                  target_recall: float = 0.9,
+                  target_precision: float = 0.9):
+        """Plan a logical join tree over two corpora with the session's
+        planner settings, memoized like `plan` but keyed on *both*
+        corpus fingerprints. Profiles are built for each side corpus
+        only — the pair cascade's operators decompose to side-item
+        engine calls, so the sides' KV-cache profiles serve the pair
+        stages too."""
+        from repro_torch.core.planner import plan_tree as _plan_tree
+        with self._state_lock:
+            self._ensure_prepared(left_items)
+            self._ensure_prepared(right_items)
+            key = ("tree", self._corpus_key(left_items),
+                   self._corpus_key(right_items), tree,
+                   target_recall, target_precision,
+                   self.measured.version if len(self.measured) else 0)
+            plan = self._plan_cache.get(key)
+            if plan is None:
+                cfg = self.config
+                plan = _plan_tree(
+                    tree, left_items, right_items, self.backend,
+                    cfg.planner, target_recall=target_recall,
+                    target_precision=target_precision,
+                    sample_frac=cfg.sample_frac, seed=cfg.seed,
+                    reorder=cfg.reorder,
+                    coalesce=cfg.coalesce if cfg.coalesce is not None
+                    else DEFAULT_COALESCE,
+                    measured=self.measured if len(self.measured) else None)
+                self._plan_cache[key] = plan
+            return plan
+
+    def run_tree(self, plan, left_items: Sequence[Any],
+                 right_items: Sequence[Any],
+                 backend: Optional[Backend] = None, *,
+                 partition_size=_UNSET, coalesce=_UNSET,
+                 dispatcher=_UNSET):
+        """Execute a planned join tree — left side, right side, then the
+        pair cascade over the blocked survivor pairs — with the
+        session's execution defaults. Returns a runtime TreeResult."""
+        from repro_torch.runtime.tree import run_tree as _run_tree
+        self._ensure_prepared(left_items)
+        self._ensure_prepared(right_items)
+        return _run_tree(plan, left_items, right_items,
+                         backend or self.backend,
+                         **self._exec_kwargs(partition_size, coalesce,
+                                             dispatcher))
+
+    def gold_tree(self, plan, left_items: Sequence[Any],
+                  right_items: Sequence[Any]):
+        """The gold reference execution of a join tree (every role run
+        under its gold-only plan, gold survivors paired), memoized per
+        (both corpora, tree queries)."""
+        from repro_torch.runtime.tree import run_gold_tree
+        with self._state_lock:
+            self._ensure_prepared(left_items)
+            self._ensure_prepared(right_items)
+            key = ("gold-tree", self._corpus_key(left_items),
+                   self._corpus_key(right_items), plan.join,
+                   tuple(tuple(plan.queries[r].nodes)
+                         for r in ("left", "right", "pair")))
+            got = self._gold_cache.get(key)
+            if got is None:
+                got = run_gold_tree(plan, left_items, right_items,
+                                    self.reference, **self._exec_kwargs())
+                self._gold_cache[key] = got
+            return got
+
     # ---------------- not ported yet ----------------
-
-    def plan_tree(self, *args, **kwargs):
-        _not_ported("Session.plan_tree (join trees)")
-
-    def run_tree(self, *args, **kwargs):
-        _not_ported("Session.run_tree (join trees)")
-
-    def gold_tree(self, *args, **kwargs):
-        _not_ported("Session.gold_tree (join trees)")
 
     def scheduler(self, **kwargs):
         _not_ported("Session.scheduler (the query scheduler)")

@@ -28,14 +28,17 @@ class QueryStats(NamedTuple):
 
 
 def calibrate_query_stats(params, cfg: ModelConfig, tokens,
-                          tail_frac: float = 0.5) -> QueryStats:
+                          tail_frac: float = 0.5,
+                          kernels=None) -> QueryStats:
     """Fit per-layer, per-head query Gaussians from calibration data, on
     the trailing `tail_frac` positions (future operator queries arrive
     after the document). As in the JAX package, the queries are projected
     in the model dtype, mean and (population) variance are reduced in
     float32 (`jnp.mean` / `jnp.var` upcast bfloat16), and the stats come
-    back in the model dtype."""
-    _, caches = _trunk(params, cfg, tokens, collect_hidden=True)
+    back in the model dtype. `kernels` selects the forward's attention
+    route (the prefill kernel on the card)."""
+    _, caches = _trunk(params, cfg, tokens, collect_hidden=True,
+                       kernels=kernels)
     h = caches["h"]                                # (L, B, S, d)
     Ln, B, S, d = h.shape
     t0 = int(S * (1.0 - tail_frac))

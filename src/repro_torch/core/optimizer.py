@@ -121,14 +121,18 @@ def optimize_query(pipelines: Sequence[R.PipelineData],
                    target_recall: float, target_precision: float,
                    cfg: Optional[PlannerConfig] = None,
                    batch_hint: Optional[R.BatchHint] = None,
-                   groups=None) -> OptimizedPlan:
+                   groups: Optional[Sequence[R.TreeGroup]] = None
+                   ) -> OptimizedPlan:
     """batch_hint activates the batch-size-aware cost model for pipelines
-    carrying fixed per-call costs (see relaxation.BatchHint). Grouped
-    (join-tree) optimization is not ported yet."""
-    if groups is not None:
-        raise NotImplementedError(
-            "optimize_query(groups=...) plans join trees, which the port "
-            "does not carry yet (ROADMAP queue 1: tree.py and plan_tree)")
+    carrying fixed per-call costs (see relaxation.BatchHint).
+
+    groups switches the simulation from the linear `query_counts` chain
+    to the grouped `tree_counts` (join trees: side pipelines reset their
+    reach, the pairing cascade's entry mass is the product of the side
+    survivals, and per-group cost weights / hints price each pipeline
+    against its own corpus), so the query-level error budget is
+    allocated across every pipeline of the tree by the same joint
+    gradient relaxation."""
     cfg = cfg if cfg is not None else PlannerConfig()
     pipelines = list(pipelines)
     sizes = [p.scores.shape[0] for p in pipelines]
@@ -143,6 +147,9 @@ def optimize_query(pipelines: Sequence[R.PipelineData],
     t_prec = min(target_precision + cfg.margin, 0.999)
 
     def counts_fn(params_list, tau, hard=False, pick_tau=None):
+        if groups is not None:
+            return R.tree_counts(pipelines, params_list, g, groups, tau,
+                                 hard=hard, pick_tau=pick_tau)
         return R.query_counts(pipelines, params_list, g, tau, hard=hard,
                               pick_tau=pick_tau, batch_hint=batch_hint)
 

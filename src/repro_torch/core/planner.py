@@ -5,22 +5,30 @@ a PhysicalPlan the streaming runtime can execute over the full dataset.
 Profile/plan helpers live in runtime.plan_utils.
 
 `plan_query` plans one linear pipeline (filters / maps / top-k / agg over
-one corpus). `plan_tree` (join trees) is not ported yet and raises.
+one corpus). `plan_tree` plans a logical join tree: both side pipelines
+and the pairing cascade are profiled on their own samples and optimized
+*jointly* through the grouped relaxation (`relaxation.tree_counts`), so
+the query-level recall/precision budget is allocated across every
+pipeline of the tree by one gradient descent.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from types import SimpleNamespace
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import ordering as ORD
 from repro_torch.core import relaxation as R
-from repro_torch.core.logical import (Query, SemAgg, SemTopK,
-                                      leading_relational, normalize,
+from repro_torch.core.logical import (JoinNode, PipelineLeaf, Query, SemAgg,
+                                      SemTopK, leading_relational,
+                                      lower_tree, normalize,
                                       pinned_relational)
 from repro_torch.core.optimizer import PlannerConfig, optimize_query
-from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
+from repro_torch.core.physical import (TREE_ROLES, PhysicalPlan,
+                                       PhysicalPlanStage, TreePlan)
 from repro_torch.core.profiling import profile_query
 from repro_torch.runtime.dispatch import DEFAULT_COALESCE
 from repro_torch.runtime.plan_utils import (estimate_selectivities,
@@ -89,7 +97,8 @@ def _shift_topk_gold(profiles, sem_ops, n_items: int) -> None:
 
 def _build_stages(profiles, plan, sel, hint: R.BatchHint, n_items: int,
                   measured, sem_ops=None):
-    """The planner's stage-materialization tail: per selected physical op,
+    """The planner's stage-materialization tail, shared verbatim between
+    `plan_query` and each `plan_tree` role: per selected physical op,
     derive the expected coalesced flush batch (measured width if the
     feedback store has seen the op, else the hint width; capped by the
     op's memory budget and by how many tuples reach it), price the stage
@@ -213,8 +222,212 @@ def plan_query(query: Query, items: Sequence[Any], registry: Callable,
         post_relational=pinned_relational(query))
 
 
-def plan_tree(*args, **kwargs):
-    """Join-tree planning waits with the port's join runtime."""
-    raise NotImplementedError(
-        "plan_tree is not ported yet: join trees (runtime/tree.py, "
-        "plan_tree, JoinFrame) are queued in ROADMAP queue 1")
+# ---------------------------------------------------------------------------
+# tree planning (joins)
+# ---------------------------------------------------------------------------
+
+def _block_pairs(sample_l, sample_r, on: Optional[str], seed: int,
+                 max_pairs: int = 256):
+    """Sample pair coordinates (i into sample_l, j into sample_r) after
+    equi-join blocking on `on`; uniformly subsampled to `max_pairs` so
+    pair profiling stays bounded."""
+    ii, jj = [], []
+    for i, l in enumerate(sample_l):
+        lv = getattr(l, "row", {}).get(on) if on else None
+        if on is not None and lv is None:
+            continue          # rows missing the block column never pair
+        for j, r in enumerate(sample_r):
+            if on is not None \
+                    and getattr(r, "row", {}).get(on) != lv:
+                continue
+            ii.append(i)
+            jj.append(j)
+    ii = np.asarray(ii, np.int64)
+    jj = np.asarray(jj, np.int64)
+    if len(ii) > max_pairs:
+        keep = np.sort(np.random.default_rng(seed).choice(
+            len(ii), size=max_pairs, replace=False))
+        ii, jj = ii[keep], jj[keep]
+    return ii, jj
+
+
+def _broadcast_profile(p, idx: np.ndarray):
+    """A side profile re-indexed onto pair coordinates (score[op, t] =
+    score[op, side_index(t)]) — the relaxation then optimizes all roles
+    over one shared coordinate set."""
+    return dataclasses.replace(
+        p,
+        scores=p.scores[:, idx],
+        values=None if p.values is None else p.values[:, idx],
+        correct=None if p.correct is None else p.correct[:, idx])
+
+
+def plan_tree(tree, left_items: Sequence[Any], right_items: Sequence[Any],
+              registry: Callable, cfg: Optional[PlannerConfig] = None, *,
+              target_recall: float = 0.9, target_precision: float = 0.9,
+              sample_frac: float = 0.15, seed: int = 0,
+              reorder: bool = True, coalesce: int = DEFAULT_COALESCE,
+              measured=None) -> TreePlan:
+    """Plan a logical join tree over two corpora.
+
+    Both sides and the pairing cascade are profiled on their own samples;
+    side scores are broadcast onto the blocked sample-pair coordinates
+    and ONE grouped gradient optimization (`optimize_query(groups=...)`)
+    places thresholds for every pipeline at once against the pair-level
+    gold membership — the error budget allocation across the tree the
+    paper formulates, generalized past the linear chain. Each role then
+    materializes its own PhysicalPlan (reordered independently) for the
+    runtime to execute in sequence: left side, right side, pair cascade
+    over blocked survivor pairs.
+    """
+    cfg = cfg if cfg is not None else PlannerConfig()
+    t0 = time.perf_counter()
+    tree = lower_tree(tree)
+    if not isinstance(tree, JoinNode):
+        raise ValueError("plan_tree expects a join tree; linear pipelines "
+                         "go through plan_query")
+    if not isinstance(tree.left, PipelineLeaf) \
+            or not isinstance(tree.right, PipelineLeaf):
+        raise ValueError("nested joins are not supported yet — each join "
+                         "side must be a linear pipeline")
+    join = tree.op
+    queries = {
+        "left": normalize(Query(list(tree.left.nodes),
+                                target_recall, target_precision)),
+        "right": normalize(Query(list(tree.right.nodes),
+                                 target_recall, target_precision)),
+        "pair": Query([join, *tree.pair_nodes],
+                      target_recall, target_precision),
+    }
+    corpora = {"left": left_items, "right": right_items}
+
+    # profile each side on its own sample
+    profiles_l, sidx_l = profile_query(queries["left"], left_items,
+                                       registry, sample_frac, seed)
+    profiles_r, sidx_r = profile_query(queries["right"], right_items,
+                                       registry, sample_frac, seed + 1)
+    sample_l = [left_items[i] for i in sidx_l]
+    sample_r = [right_items[i] for i in sidx_r]
+    _shift_topk_gold(profiles_l, queries["left"].semantic_ops,
+                     len(left_items))
+    _shift_topk_gold(profiles_r, queries["right"].semantic_ops,
+                     len(right_items))
+
+    # blocked sample-pair corpus + pair-cascade profiling over it
+    ii, jj = _block_pairs(sample_l, sample_r, join.on, seed)
+    if len(ii) == 0:
+        raise ValueError(
+            f"join blocking on {join.on!r} eliminated every sample pair — "
+            f"the corpora share no block values; drop `on` or check the "
+            f"column")
+    from repro_torch.runtime.tree import make_pairs
+    pair_sample = make_pairs([sample_l[i] for i in ii],
+                             [sample_r[j] for j in jj])
+    profiles_p, _ = profile_query(queries["pair"], pair_sample, registry,
+                                  sample_frac=1.0, seed=seed)
+
+    n_l, n_r = len(left_items), len(right_items)
+    n_ls, n_rs, n_p = len(sidx_l), len(sidx_r), len(ii)
+    block_frac = n_p / max(n_ls * n_rs, 1)
+
+    # pair-level gold membership: both sides' gold plans admit AND the
+    # gold pair scorer matches — the per-tuple product form, unchanged.
+    # A bare side (no semantic operators) admits everything.
+    g = ((gold_membership(profiles_l)[ii] if profiles_l
+          else np.ones(len(ii), np.float32))
+         * (gold_membership(profiles_r)[jj] if profiles_r
+            else np.ones(len(jj), np.float32))
+         * gold_membership(profiles_p))
+
+    sem_ops_all = (queries["left"].semantic_ops
+                   + queries["right"].semantic_ops
+                   + queries["pair"].semantic_ops)
+    pipelines_all = pipelines_data(
+        [_broadcast_profile(p, ii) for p in profiles_l]
+        + [_broadcast_profile(p, jj) for p in profiles_r]
+        + list(profiles_p),
+        measured, sem_ops=sem_ops_all)
+
+    # per-group reach->corpus weights (see relaxation.TreeGroup): a side
+    # op's pair-coordinate reach sum overcounts by its pairing degree,
+    # so sides weigh n_side / n_pairs; the pair cascade scales straight
+    # from sample pairs to the blocked corpus pair count
+    width = _hint_width(profiles_l + profiles_r + profiles_p, coalesce,
+                        measured)
+    cw = {"left": n_l / max(n_p, 1), "right": n_r / max(n_p, 1),
+          "pair": (n_l * n_r) / max(n_ls * n_rs, 1)}
+    groups = [
+        R.TreeGroup(len(profiles_l), "side", cw["left"],
+                    R.BatchHint(width, cw["left"])),
+        R.TreeGroup(len(profiles_r), "side", cw["right"],
+                    R.BatchHint(width, cw["right"])),
+        R.TreeGroup(len(profiles_p), "pair", cw["pair"],
+                    R.BatchHint(width, cw["pair"])),
+    ]
+    plan = optimize_query(pipelines_all, g, target_recall,
+                          target_precision, cfg, groups=groups)
+
+    # slice the joint solution back into roles and materialize each
+    role_profiles = {"left": profiles_l, "right": profiles_r,
+                     "pair": profiles_p}
+    counts = [len(profiles_l), len(profiles_r), len(profiles_p)]
+    offsets = np.cumsum([0] + counts)
+    role_plans, split = {}, {}
+    # side survivor fractions drive the expected pair-corpus size
+    surv = {}
+    for role, lo, hi in zip(TREE_ROLES, offsets[:-1], offsets[1:]):
+        profs = role_profiles[role]
+        if not profs:
+            # bare side (no semantic operators): nothing to optimize —
+            # every item survives its (at most relational) pipeline
+            split[role] = (1.0, 1.0)
+            surv[role] = 1.0
+            role_plans[role] = PhysicalPlan(
+                stages=[], relational=leading_relational(queries[role]),
+                est_cost=0.0, recall_bound=1.0, precision_bound=1.0,
+                feasible=plan.feasible,
+                post_relational=pinned_relational(queries[role]))
+            continue
+        rp = SimpleNamespace(params=plan.params[lo:hi],
+                             selected=plan.selected[lo:hi])
+        role_ops = queries[role].semantic_ops
+        # role-local hard evaluation on the role's own sample: the
+        # budget split EXPLAIN renders, and the role's own cost estimate
+        role_data = pipelines_data(profs, measured, sem_ops=role_ops)
+        role_gold = gold_membership(profs)
+        c = R.query_counts(role_data, rp.params,
+                           np.asarray(role_gold, np.float32), 0.0,
+                           hard=True,
+                           batch_hint=R.BatchHint(width, 1.0))
+        tp, fp, fn = float(c.tp), float(c.fp), float(c.fn)
+        split[role] = (tp / max(tp + fn, 1e-9), tp / max(tp + fp, 1e-9))
+        n_sample = profs[0].scores.shape[1]
+        surv[role] = (tp + fp) / max(n_sample, 1)
+
+        sel = estimate_selectivities(profs, rp, sem_ops=role_ops)
+        if role == "pair":
+            n_role = max(1, int(round(block_frac
+                                      * surv["left"] * n_l
+                                      * surv["right"] * n_r)))
+        else:
+            n_role = len(corpora[role])
+        phys_ops, stage_meta = _build_stages(
+            profs, rp, sel, R.BatchHint(width, 1.0), n_role, measured,
+            role_ops)
+        stages = _order_stages(phys_ops, stage_meta, n_role, reorder)
+        role_plans[role] = PhysicalPlan(
+            stages=stages, relational=leading_relational(queries[role]),
+            est_cost=float(c.cost) / max(n_sample, 1) * n_role,
+            recall_bound=split[role][0], precision_bound=split[role][1],
+            feasible=plan.feasible,
+            post_relational=pinned_relational(queries[role]))
+
+    est_pairs = max(1, int(round(block_frac * surv["left"] * n_l
+                                 * surv["right"] * n_r)))
+    return TreePlan(
+        roles=role_plans, queries=queries, join=join,
+        est_cost=plan.est_cost,
+        recall_bound=plan.recall_bound,
+        precision_bound=plan.precision_bound,
+        feasible=plan.feasible, split=split, est_pairs=est_pairs,
+        planning_time_s=time.perf_counter() - t0)

@@ -28,7 +28,8 @@ For maps, scores are *confidences* and correctness (n_j, N) in {0,1} says
 whether op i's output value equals the gold op's value for tuple t; the
 reject branch is disabled (a map commits or defers).
 
-`tree_counts` (join trees) is not ported yet.
+`tree_counts` generalises `query_counts` to a grouped join tree (two side
+pipelines and a pairing cascade over shared pair coordinates).
 """
 from __future__ import annotations
 
@@ -220,25 +221,81 @@ def query_counts(pipelines, params_list, gold_membership, tau,
 
     TP_t = prod_j p_agree_j(t) * g_t ; FP_t = p_in_o(t) - TP_t ;
     FN_t = g_t - TP_t (paper §4.2: per-tuple products over the same
-    sample, no independence assumption).
+    sample, no independence assumption). A linear chain is a tree of one
+    side group of weight 1, so this is `tree_counts` over that group.
+    """
+    return tree_counts(pipelines, params_list, gold_membership,
+                       [TreeGroup(len(pipelines), "side", 1.0, batch_hint)],
+                       tau, hard=hard, pick_tau=pick_tau)
+
+
+class TreeGroup(NamedTuple):
+    """One pipeline group of a tree-shaped query in the relaxation.
+
+    The join relaxation runs over *pair coordinates*: every sample tuple
+    t = (i, j) pairs a left-sample item with a right-sample item, and
+    each side's per-op scores are broadcast onto those coordinates
+    (score[op, t] = score[op, i]). Groups structure the survive chain:
+
+      kind "side" — an independent input pipeline (a join side). Its
+        reach resets to 1 (the side scans its own corpus regardless of
+        the other side's outcomes) and its survival multiplies the
+        downstream entry mass.
+      kind "pair" — a downstream pairing cascade: a pair is only scored
+        when BOTH sides survived, so its entry reach is the product of
+        the completed side survivals.
+
+    cost_weight converts summed pair-coordinate reach mass into corpus
+    tuples for this group (a left op's reach is constant across the j
+    axis, so its pair-coordinate sum overcounts by n_right_sample; the
+    weight divides that back out and folds in the sample->corpus scale),
+    making QueryCounts.cost the corpus-level expected cost directly.
+    hint is the group's own BatchHint (each group flushes against its
+    own corpus, so each amortizes fixed costs over its own widths)."""
+    count: int               # number of pipelines in this group
+    kind: str                # "side" | "pair"
+    cost_weight: float       # pair-coordinate reach -> corpus tuples
+    hint: Optional[BatchHint]  # group-local batch context (None: default)
+
+
+def tree_counts(pipelines, params_list, gold_membership, groups, tau,
+                hard: bool = False, pick_tau=None) -> QueryCounts:
+    """`query_counts` generalized to a grouped plan tree (the query-level
+    budget allocation across pipelines, extended past the linear chain).
+
+    pipelines/params_list are concatenated group-major ([left ops...,
+    right ops..., pair ops...]); `groups` names the boundaries. TP/FP/FN
+    keep the exact per-tuple product form of `query_counts`: a pair is
+    in the result iff its left side passes, its right side passes, and
+    the pairing cascade accepts, which is the product of accepts over
+    all three groups on the shared pair coordinates. Parameters may carry
+    leading (restart) dimensions, as in `query_counts`.
     """
     g = torch.as_tensor(gold_membership).float()
     N = g.shape[0]
     p_in = torch.ones(N)
     p_good = torch.ones(N)
     total_cost = torch.zeros(N)
-    survive = torch.ones(N)     # tuples reaching this pipeline (plan order)
-    for data, params in zip(pipelines, params_list):
-        accept, cost, decided = simulate_pipeline(params, data, tau, hard,
-                                                  pick_tau, batch_hint,
-                                                  reach_weight=survive)
-        total_cost = total_cost + survive * cost
-        if data.is_map:
-            p_good = p_good * pipeline_value_correct(decided, data.correct)
-        else:
-            p_in = p_in * accept
-            p_good = p_good * accept
-            survive = survive * accept
+    entry_acc = torch.ones(N)   # product of completed side-group survivals
+    idx = 0
+    for grp in groups:
+        survive = torch.ones(N) if grp.kind == "side" else entry_acc
+        for _ in range(grp.count):
+            data, params = pipelines[idx], params_list[idx]
+            idx += 1
+            accept, cost, decided = simulate_pipeline(
+                params, data, tau, hard, pick_tau, grp.hint,
+                reach_weight=survive)
+            total_cost = total_cost + grp.cost_weight * survive * cost
+            if data.is_map:
+                p_good = p_good * pipeline_value_correct(decided,
+                                                         data.correct)
+            else:
+                p_in = p_in * accept
+                p_good = p_good * accept
+                survive = survive * accept
+        if grp.kind == "side":
+            entry_acc = entry_acc * survive
     tp = (p_good * g).sum(-1)
     fp = _max(p_in - p_good * g, 0.0).sum(-1)
     fn = _max(g - p_good * g, 0.0).sum(-1)

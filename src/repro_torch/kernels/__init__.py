@@ -4,6 +4,8 @@
                       KV caches (single token and fused Lq-token query);
                       the hot loop of Stretto's prefill-skip operators
   expected_attention  query-agnostic Expected-Attention compression scores
+  prefill_attention   causal / windowed flash attention over whole
+                      sequences (the offline prefill and calibration)
   ref                 plain PyTorch versions of every kernel
   ops                 backend-selecting wrappers (auto | cuda | ref)
   build               nvcc + ctypes loader for csrc/*.cu

@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import expected_attention as _ea
+from repro_torch.kernels import prefill_attention as _pa
 from repro_torch.kernels.ref import GLOBAL
 
 VALID_BACKENDS = ("auto", "cuda", "ref")
@@ -35,6 +36,7 @@ KERNELS = {
     "decode_attention": _da.decode_attention,
     "decode_attention_int8": _da.decode_attention_int8,
     "expected_attention_scores": _ea.expected_attention_scores,
+    "prefill_attention": _pa.prefill_attention,
 }
 
 
@@ -106,6 +108,17 @@ def decode_query_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,
             q, k_cache, v_cache, k_scale, v_scale, lengths, window=window)
     return ref.decode_query_attention_ref(q, k_cache, v_cache, lengths,
                                           window=window)
+
+
+def prefill_attention(q, k, v, *, window=GLOBAL, causal: bool = True,
+                      backend=None):
+    """Causal / windowed flash attention over whole sequences;
+    q (B, S, KV, G, dk), k (B, S, KV, dk), v (B, S, KV, dv) ->
+    (B, S, KV, G, dv). `window` must be >= 1."""
+    window = _pa.check_window(window)
+    if use_kernel(backend, q):
+        return _pa.prefill_attention(q, k, v, window=window, causal=causal)
+    return ref.prefill_attention_ref(q, k, v, window=window, causal=causal)
 
 
 def expected_attention_scores(k_cache, mu, sig2, *, backend=None):

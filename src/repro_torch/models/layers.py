@@ -9,8 +9,9 @@ conventions:
   - the per-layer window is data: a plain int per layer, GLOBAL_WINDOW
     meaning full attention
 
-Decode attention goes through `kernels.ops`, which launches the
-hand-written CUDA kernels for CUDA tensors.
+Decode attention, and full-sequence attention on the card, go through
+`kernels.ops`, which launches the hand-written CUDA kernels for CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -127,12 +128,22 @@ def gqa_project_qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def gqa_attn_full(p, x, cfg: ModelConfig, window, positions):
-    """Prefill path. Returns (attn_out, (k, v))."""
+def gqa_attn_full(p, x, cfg: ModelConfig, window, positions, *,
+                  kernels=None):
+    """Prefill path. Returns (attn_out, (k, v)). Where `kernels` selects
+    the CUDA kernel for these tensors (`auto` or `cuda` on the card), the
+    attention is the hand-written prefill kernel; otherwise it is the
+    blocked `flash_attention`, the JAX package's own route."""
     q, k, v = gqa_project_qkv(p, x, cfg, positions)
-    out = flash_attention(q, k, v, window, block_q=FLASH_BLOCK,
-                          block_k=FLASH_BLOCK)
     B, S = q.shape[:2]
+    if KOPS.use_kernel(kernels, q):
+        KV = cfg.n_kv_heads
+        out = KOPS.prefill_attention(
+            q.reshape(B, S, KV, cfg.n_heads // KV, cfg.d_head), k, v,
+            window=window, backend=kernels)
+    else:
+        out = flash_attention(q, k, v, window, block_q=FLASH_BLOCK,
+                              block_k=FLASH_BLOCK)
     out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
     return out @ p["wo"], (k, v)
 

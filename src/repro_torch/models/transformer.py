@@ -144,10 +144,12 @@ def _head(params, cfg: ModelConfig):
 
 
 def _trunk(params, cfg: ModelConfig, tokens, collect_cache: bool = False,
-           collect_hidden: bool = False):
+           collect_hidden: bool = False, kernels=None):
     """Every layer over the full sequence. Returns (final-normed x,
     caches or None): "k"/"v" with collect_cache, "h" (the post-norm layer
-    inputs) with collect_hidden, each stacked (L, B, S, ...)."""
+    inputs) with collect_hidden, each stacked (L, B, S, ...). `kernels`
+    selects the attention route (kernels.ops backends): on the card under
+    auto / cuda every layer launches the prefill kernel."""
     _check_gqa(cfg)
     x = params["embed"][tokens]
     B, S = x.shape[:2]
@@ -158,7 +160,8 @@ def _trunk(params, cfg: ModelConfig, tokens, collect_cache: bool = False,
         p = _layer(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
         attn_out, (k, v) = L.gqa_attn_full(p["attn"], h, cfg,
-                                           int(windows[i]), positions)
+                                           int(windows[i]), positions,
+                                           kernels=kernels)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -176,9 +179,10 @@ def _trunk(params, cfg: ModelConfig, tokens, collect_cache: bool = False,
 
 
 def forward(params, cfg: ModelConfig, tokens, collect_cache: bool = False,
-            collect_hidden: bool = False):
+            collect_hidden: bool = False, kernels=None):
     """Full-sequence forward. Returns (logits (B, S, V), caches or None)."""
-    x, caches = _trunk(params, cfg, tokens, collect_cache, collect_hidden)
+    x, caches = _trunk(params, cfg, tokens, collect_cache, collect_hidden,
+                       kernels=kernels)
     return x @ _head(params, cfg), caches
 
 
@@ -204,15 +208,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: Optional[int] = None,
-            lengths=None):
+            lengths=None, kernels=None):
     """Run the full prompt, return (last_logits (B, V), cache).
 
     tokens are right-padded to S; `lengths` (B,) gives true lengths
     (default S). Cache arrays are padded to `max_len` (default S). Logits
     are computed at each item's last valid position only (the JAX package
     computes them everywhere and keeps that one: the same numbers, without
-    a B x S x V tensor)."""
-    x, caches = _trunk(params, cfg, tokens, collect_cache=True)
+    a B x S x V tensor). `kernels` selects the attention route, as in
+    `_trunk`."""
+    x, caches = _trunk(params, cfg, tokens, collect_cache=True,
+                       kernels=kernels)
     B, S = x.shape[:2]
     dev = x.device
     max_len = max_len or S

@@ -7,6 +7,8 @@
   dispatch.py  — flush dispatch: inline / thread pool (STRETTO_DISPATCHER)
   plan_utils.py — gold plans, gold membership, PipelineData lifting and
                  selectivity estimates for the planner
+  tree.py      — join-tree execution: both sides, then the pair cascade
+                 over blocked survivor pairs
 
 Attribute access is lazy (PEP 562), as in the JAX package.
 """
@@ -39,6 +41,13 @@ _EXPORTS = {
     "resolve_dispatcher": "repro_torch.runtime.dispatch",
     "effective_spec": "repro_torch.runtime.dispatch",
     "DISPATCHER_ENV": "repro_torch.runtime.dispatch",
+    "PairItem": "repro_torch.runtime.tree",
+    "TreeResult": "repro_torch.runtime.tree",
+    "make_pairs": "repro_torch.runtime.tree",
+    "survivor_pairs": "repro_torch.runtime.tree",
+    "run_tree": "repro_torch.runtime.tree",
+    "run_gold_tree": "repro_torch.runtime.tree",
+    "evaluate_pairs": "repro_torch.runtime.tree",
 }
 
 __all__ = sorted(_EXPORTS)

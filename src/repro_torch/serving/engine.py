@@ -9,6 +9,10 @@ items, pad them to the longest, skip prefill, feed the operator's query
 tokens through the decode path and read out answer-token log-odds or a
 greedy value with its top-2 margin.
 
+The offline prefill and calibration forwards pass the same `kernels`
+choice to every layer's full-sequence attention: on the card that is the
+hand-written prefill kernel (`kernels/prefill_attention.py`).
+
 The decode path:
   - attention runs through kernels.ops (`kernels` ctor arg, else the
     STRETTO_TORCH_KERNELS env var: auto | cuda | ref): on the card, the
@@ -193,7 +197,8 @@ class ServingEngine:
             t0 = time.perf_counter()
             calib = _pad_tokens([it.tokens for it in items[:8]],
                                 device=self.device)
-            em.stats = calibrate_query_stats(em.params, cfg, tokens=calib)
+            em.stats = calibrate_query_stats(em.params, cfg, tokens=calib,
+                                             kernels=self.kernels)
             self._sync()
             secs["calibrate"] += time.perf_counter() - t0
         for start in range(0, len(items), prefill_batch):
@@ -204,7 +209,8 @@ class ServingEngine:
             lengths = torch.tensor([len(it.tokens) for it in chunk],
                                    dtype=torch.int32, device=self.device)
             _, cache = prefill(em.params, cfg, tokens=toks,
-                               max_len=toks.shape[1], lengths=lengths)
+                               max_len=toks.shape[1], lengths=lengths,
+                               kernels=self.kernels)
             self._sync()
             secs["prefill"] += time.perf_counter() - t0
             for bi, it in enumerate(chunk):

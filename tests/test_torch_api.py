@@ -332,10 +332,28 @@ def test_unported_parts_raise():
         SessionConfig(tenants=())
     with pytest.raises(ValueError):
         EngineSpec("bad", kernels="pallas")
-    sess = repro_torch.Session(backend=lambda op: [], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.frame([]).sem_join([], "same", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.plan_tree(None, [], [])
+    # join trees are ported: sem_join / plan_tree / run_tree / gold_tree
+    # over a registry whose only pair candidate (its gold) is the code
+    # matcher
+    from repro_torch.serving.operators import PythonPairOperator
+
+    class GoldPair(PythonPairOperator):
+        is_gold = True
+
+    left, right = tsyn.make_join_corpora(n_left=12, n_right=12, seed=2)
+    sess = repro_torch.Session(
+        backend=lambda op: [GoldPair()], device="cpu",
+        planner=repro_torch.PlannerConfig(steps=20, restarts=1))
+    jf = sess.frame(left.items).sem_join(right.items, "same v3", 3,
+                                         on="category")
+    assert isinstance(jf, repro_torch.JoinFrame)
+    plan = sess.plan_tree(jf.to_tree(), left.items, right.items)
+    assert plan is jf.plan()                         # memoized
+    res = jf.execute()
+    assert res.pair_ids == sess.gold_tree(plan, left.items,
+                                          right.items).pair_ids
+    assert all(left.items[a].row["category"]
+               == right.items[b - 1_000_000].row["category"]
+               for a, b in res.pair_ids)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sess.scheduler()

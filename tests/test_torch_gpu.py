@@ -9,7 +9,11 @@ PyTorch:
 Tolerances: atol 2e-5 in float32; 2e-2 in bfloat16, where both sides
 round their outputs to bfloat16 (one step at these magnitudes). The int8
 kernels are held to the same tolerances of their query's type against
-the plain versions, which dequantise up front.
+the plain versions, which dequantise up front. The full-width
+stretto-llama-8b prefill (32 layers, bfloat16) holds its caches and
+logits, prefill kernel against the blocked attention, to 5 % of their
+largest magnitude: bfloat16 rounding differences carried through 32
+layers of random weights.
 """
 import pytest
 import torch
@@ -17,6 +21,7 @@ import torch
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import expected_attention as EA
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import prefill_attention as PA
 
 GLOBAL = 1 << 30
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -236,3 +241,92 @@ def test_backends_on_cuda_int8_caches(gpu):
     assert ops.launch_counts() == after
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     torch.testing.assert_close(got1, want1, atol=2e-5, rtol=0)
+
+
+# (B, S, KV, G, dk, dv, dtype, window, causal): the planted widths, the 8B
+# widths at the profile builds' lengths, and non-causal, dk != dv, G 3
+PREFILL_CASES = [(16, 160, 2, 1, 16, 16, torch.float32, GLOBAL, True),
+                 (16, 160, 4, 1, 24, 24, torch.float32, 8, True),
+                 (4, 512, 8, 4, 128, 128, torch.bfloat16, GLOBAL, True),
+                 (4, 1024, 8, 4, 128, 128, torch.bfloat16, 256, True),
+                 (2, 200, 2, 3, 24, 40, torch.float32, GLOBAL, False),
+                 (2, 130, 2, 2, 32, 48, torch.bfloat16, 17, True)]
+
+
+def _prefill_inputs(seed, B, S, KV, G, dk, dv, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return rnd(B, S, KV, G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dv)
+
+
+@pytest.mark.parametrize("B,S,KV,G,dk,dv,dtype,window,causal",
+                         PREFILL_CASES)
+def test_prefill_attention_matches_plain(gpu, B, S, KV, G, dk, dv, dtype,
+                                         window, causal):
+    from repro_torch.models.layers import flash_attention
+    q, k, v = _prefill_inputs(S + dk, B, S, KV, G, dk, dv, dtype)
+    got = PA.prefill_attention(q, k, v, window=window, causal=causal)
+    want = ref.prefill_attention_ref(q, k, v, window=window, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    blocked = flash_attention(q.reshape(B, S, KV * G, dk), k, v, window,
+                              causal=causal).reshape(got.shape)
+    torch.testing.assert_close(got.float(), blocked.float(),
+                               atol=TOL[dtype], rtol=0)
+
+
+def test_prefill_output_does_not_depend_on_batch_or_padding(gpu):
+    """An item's rows are bit-identical alone and inside a larger batch
+    padded further: a row's sums run in one order fixed by its position,
+    and keys past a causal row add exact zeros."""
+    q, k, v = _prefill_inputs(7, 3, 512, 8, 4, 128, 128, torch.bfloat16)
+    for window in (GLOBAL, 100):
+        batched = PA.prefill_attention(q, k, v, window=window)
+        alone = PA.prefill_attention(q[1:2, :300], k[1:2, :300],
+                                     v[1:2, :300], window=window)
+        assert torch.equal(alone[0], batched[1, :300])
+
+
+def test_prefill_backends_on_cuda_tensors(gpu):
+    """`auto` and `cuda` launch the kernel and count it; `ref` runs the
+    plain version on the card and counts nothing; a CPU tensor under
+    `cuda` raises."""
+    q, k, v = _prefill_inputs(5, 2, 96, 2, 2, 16, 16, torch.float32)
+    before = ops.launch_counts()["prefill_attention"]
+    got = ops.prefill_attention(q, k, v, window=9)
+    ops.prefill_attention(q, k, v, window=9, backend="cuda")
+    assert ops.launch_counts()["prefill_attention"] == before + 2
+    want = ops.prefill_attention(q, k, v, window=9, backend="ref")
+    assert ops.launch_counts()["prefill_attention"] == before + 2
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.prefill_attention(q.cpu(), k.cpu(), v.cpu(), backend="cuda")
+
+
+def test_llama8b_prefill_kernel_matches_blocked_attention(gpu):
+    """A full-width stretto-llama-8b prefill (32 layers, random weights
+    from a seed): caches and last-token logits with the prefill kernel
+    (kernels="cuda") against the blocked attention (kernels="ref")."""
+    from repro_torch.configs.stretto_llama_8b import CONFIG as cfg
+    from repro_torch.models import init_params, prefill
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    toks = torch.randint(3, 1000, (2, 384), generator=gen, device="cuda")
+    lengths = torch.tensor([384, 300], dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()["prefill_attention"]
+    got = prefill(params, cfg, toks, lengths=lengths, kernels="cuda")
+    assert ops.launch_counts()["prefill_attention"] == \
+        before + cfg.n_layers
+    want = prefill(params, cfg, toks, lengths=lengths, kernels="ref")
+    for a, b in ((got[0], want[0]), (got[1]["k"], want[1]["k"]),
+                 (got[1]["v"], want[1]["v"])):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        scale = float(b.float().abs().max())
+        assert bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=0.05 * scale,
+                                   rtol=0)
+    del params
+    torch.cuda.empty_cache()

@@ -22,6 +22,8 @@ def test_port_imports_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.decode_attention" in mods
     assert "repro_torch.serving.engine" in mods
+    assert "repro_torch.kernels.prefill_attention" in mods
+    assert "repro_torch.runtime.tree" in mods
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {os.path.abspath(SRC)!r})\n"

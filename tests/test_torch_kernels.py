@@ -290,3 +290,77 @@ def test_int8_kernel_wrappers_refuse_cpu_tensors():
         ops.decode_query_attention(q, k8, k8, lengths, k_scale=ks,
                                    v_scale=ks, backend="cuda")
     assert ops.launch_counts() == before
+
+
+# prefill attention (kernel D): tests/test_kernels.py's PREFILL_CASES, one
+# case with dk != dv and one at S 1024 (four Pallas blocks of 256).
+# Tolerances: float32 3e-5 (a softmax over up to 1024 keys, summed in
+# another order than the Pallas kernel's blocks); bfloat16 3e-2 (both
+# sides round their outputs to bfloat16, one step at these magnitudes).
+PREFILL_CASES = [
+    # (B, S, KV, G, dk, dv, bq, bk, window, causal, dtype)
+    (2, 256, 2, 2, 32, 32, 64, 64, GLOBAL, True, "f32"),
+    (1, 512, 1, 4, 64, 64, 128, 128, GLOBAL, True, "f32"),
+    (2, 256, 2, 2, 32, 32, 64, 64, 64, True, "f32"),
+    (1, 256, 2, 1, 64, 64, 128, 64, GLOBAL, False, "f32"),
+    (1, 256, 1, 2, 32, 32, 64, 64, GLOBAL, True, "bf16"),
+    (1, 256, 2, 2, 24, 40, 64, 64, 48, True, "f32"),
+    (1, 1024, 1, 2, 32, 32, 256, 256, 200, True, "f32"),
+]
+PREFILL_TOL = {"f32": 3e-5, "bf16": 3e-2}
+
+
+@pytest.mark.parametrize("B,S,KV,G,dk,dv,bq,bk,window,causal,dt",
+                         PREFILL_CASES)
+def test_prefill_attention_matches_pallas_and_oracle(B, S, KV, G, dk, dv, bq,
+                                                     bk, window, causal, dt):
+    from repro.kernels import ref as jref
+    from repro.kernels.prefill_attention import prefill_attention as jpa
+    rng = np.random.default_rng(S + dk + dv)
+    q = rng.normal(size=(B, S, KV, G, dk)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, dk)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, dv)).astype(np.float32)
+    jdt, tdt, _ = DTYPES[dt]
+    jargs = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    got = ops.prefill_attention(*(torch.from_numpy(a).to(tdt)
+                                  for a in (q, k, v)),
+                                window=window, causal=causal)
+    assert got.dtype == tdt and got.shape == (B, S, KV, G, dv)
+    pallas = jpa(*jargs, window=window, causal=causal, block_q=bq,
+                 block_k=bk, interpret=True)
+    oracle = jref.prefill_attention_ref(*jargs, window=window,
+                                        causal=causal)
+    tol = PREFILL_TOL[dt]
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=tol, rtol=0)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=tol, rtol=0)
+
+
+def test_prefill_window_below_one_raises():
+    """No key is visible below window 1 (and the Pallas result then
+    depends on its block size): both routes refuse it."""
+    from repro_torch.kernels import prefill_attention as pa
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.normal(size=(1, 16, 1, 2, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 16, 1, 8)).astype(np.float32))
+    before = ops.launch_counts()
+    for window in (0, -3):
+        with pytest.raises(ValueError, match="window"):
+            ops.prefill_attention(q, k, k, window=window)
+        with pytest.raises(ValueError, match="window"):
+            pa.prefill_attention(q, k, k, window=window)
+    assert ops.prefill_attention(q, k, k, window=1).shape == q.shape
+    assert ops.launch_counts() == before
+
+
+def test_prefill_kernel_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import prefill_attention as pa
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 16, 1, 2, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 16, 1, 8)).astype(np.float32))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.prefill_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.prefill_attention(q, k, k, backend="cuda")
+    assert ops.launch_counts() == before
+    assert "prefill_attention" in before

@@ -270,3 +270,30 @@ def test_cuda_default_raises_without_cuda():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         tT.init_cache(LLAMA.reduced(), 1, 8)
+
+
+@pytest.mark.parametrize("S,window", [(64, 1 << 30), (200, 16),
+                                      (512, 1 << 30)])
+def test_gqa_attn_full_ref_route_matches_jax(S, window):
+    """The prefill layer under kernels="ref" (and "auto" on the CPU) keeps
+    the blocked `flash_attention`, the JAX package's route: its output and
+    k/v equal the JAX layer's (one query block up to S 512, where the JAX
+    blocked attention is right), atol 1e-4 as on the random configs."""
+    cfg = _port_cfg(RANDOM_GQA)
+    jp = jT.init_params(RANDOM_GQA, jax.random.PRNGKey(4))
+    jattn = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    tattn = {k: torch.from_numpy(np.array(v)) for k, v in jattn.items()}
+    rng = np.random.default_rng(S)
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
+    jout, (jk, jv) = jL.gqa_attn_full(jattn, jnp.asarray(x), RANDOM_GQA,
+                                      window, jnp.asarray(pos))
+    for kernels in ("ref", "auto", None):
+        out, (k, v) = tL.gqa_attn_full(tattn, torch.from_numpy(x), cfg,
+                                       window, torch.from_numpy(pos.copy()),
+                                       kernels=kernels)
+        for a, b in ((out, jout), (k, jk), (v, jv)):
+            np.testing.assert_allclose(_np(a), _np(b), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tL.gqa_attn_full(tattn, torch.from_numpy(x), cfg, window,
+                         torch.from_numpy(pos.copy()), kernels="cuda")

@@ -233,9 +233,28 @@ def test_optimize_query_matches_jax(world):
 
 
 def test_optimize_query_groups_not_ported(world):
-    _, g, _, tp = world
-    with pytest.raises(NotImplementedError):
-        TO.optimize_query(tp, g, 0.7, 0.7, groups=[object()])
+    """Grouped (join-tree) optimization is ported: the plan the port picks
+    under `groups`, re-counted by the JAX package's `tree_counts` at
+    tau 0, has the port's sample counts and cost (atol 1e-4 on counts,
+    rtol 1e-5 on cost)."""
+    _, g, jp, tp = world
+    groups = [(1, "side", 0.5), (1, "pair", 2.0)]
+    tgroups = [TR.TreeGroup(c, k, w, TR.BatchHint(64.0, w))
+               for c, k, w in groups]
+    jgroups = [JR.TreeGroup(c, k, w, JR.BatchHint(64.0, w))
+               for c, k, w in groups]
+    plan = TO.optimize_query(tp, g, 0.7, 0.7,
+                             TO.PlannerConfig(steps=30, restarts=2),
+                             groups=tgroups)
+    jparams = [JR.PipelineParams(*(jnp.asarray(_np(x)) for x in p))
+               for p in plan.params]
+    c = JR.tree_counts(jp, jparams, jnp.asarray(g), jgroups, 0.0,
+                       hard=True)
+    assert plan.sample_tp == pytest.approx(float(c.tp), abs=1e-4)
+    assert plan.sample_fp == pytest.approx(float(c.fp), abs=1e-4)
+    assert plan.sample_fn == pytest.approx(float(c.fn), abs=1e-4)
+    assert plan.est_cost == pytest.approx(float(c.cost), rel=1e-5)
+    assert all(sel[-1] for sel in plan.selected)
 
 
 # ---------------------------------------------------------------------------
