@@ -14,7 +14,10 @@ Phases, one JSON line each:
            (kernel_edges: rows that see no cache position, and an item's
            output alone vs in a larger, further-padded batch); the prefill
            kernel (D) also against the blocked `flash_attention`, causal
-           and not, windowed and not, dk != dv, and batch invariance
+           and not, windowed and not, dk != dv, and batch invariance, in
+           both bodies (tensor cores for bf16 at head dims that are
+           multiples of 16, FMAs otherwise); its 8B rows also against the
+           tensor-core body's CPU twin, timed beside it and the FMA body
   planted  the planted sm/lg world (200 items) under a hand-written
            cascade plan through KVCacheBackend + run_plan; inline vs
            threads:2 bit-identical; the same plan on the CPU equal outside
@@ -47,14 +50,17 @@ Phases, one JSON line each:
            with stretto-llama-8b as "lg" (ladder 0.5 + gold), 24 + 24
            items of 512 tokens
 Every profile build (prefill and calibration) runs the prefill kernel D
-in every layer, so D is launched on every Session path.
+in every layer, so D is launched on every Session path: its tensor-core
+body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
+ones (float32); any other body on a path fails the run.
 Then the kernels line, the nvidia-smi line and, last, the result line.
 
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The kernels line carries, per kernel, the sum of its
 counts over the Session paths (the quickstart query and the join, planted
 and 8B, with the scan legs and the hand-set join tree), and each path's
-count. Its bound_ms is the larger of the bytes over 3.35 TB/s and the
+count; D appears once per body (prefill_attention_tc, _fma), with that
+body's counts. Its bound_ms is the larger of the bytes over 3.35 TB/s and the
 flops over the peak rate for the operands' type (989 TFLOP/s on the bf16
 tensor cores, 67 TFLOP/s for float32). Any failed phase exits non-zero. Without CUDA, or without the
 repository around it, the script exits non-zero and prints no result.
@@ -333,13 +339,34 @@ def phase_kernels(torch, flush):
     return rows
 
 
+def _prefill_fma(PA, q, k, v, window, causal):
+    """Kernel D's FMA body on bf16 inputs the rule gives to the tensor-core
+    body: the kernel these inputs ran on before the tensor-core body,
+    timed beside it in the same run. Not counted (a yardstick, never on a
+    path)."""
+    import torch
+    B, S, KV, G, dk = q.shape
+    dv = v.shape[-1]
+    out = torch.empty((B, S, KV, G, dv), dtype=q.dtype, device=q.device)
+    err = PA._entry("fma")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, KV,
+        G, dk, dv, window, int(causal), dk ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"prefill_attention fma body: cudaError {err}")
+    return out
+
+
 def _prefill_cases(torch, gen, tol, flush):
     """Kernel D against the plain version (the attention oracle) and the
     blocked `flash_attention` at the build shapes: the planted models
-    (B 16, S 160, float32, dk 16 / 24) and stretto-llama-8b (B 4, S 512
-    and 1024, bfloat16), windowed and not; one non-causal and one
-    dk != dv case; and an item's rows alone vs in a larger, further-padded
-    batch (bit-identical). Times at the global shapes."""
+    (B 16, S 160, float32, dk 16 / 24: the FMA body) and stretto-llama-8b
+    (B 4, S 512 and 1024, bfloat16: the tensor-core body), windowed and
+    not; one non-causal and one dk != dv case. The 8B rows are also held
+    to the tensor-core body's CPU twin run on the card, and timed beside
+    the twin, the FMA body (on the same inputs) and SDPA.
+    Then an item's rows alone vs in a larger, further-padded batch, in
+    both bodies (bit-identical)."""
     import torch.nn.functional as F
     from repro_torch.kernels import prefill_attention as PA
     from repro_torch.kernels import ref
@@ -347,7 +374,7 @@ def _prefill_cases(torch, gen, tol, flush):
     f32, bf16 = torch.float32, torch.bfloat16
     # (label, B, S, KV, G, dk, dv, dtype, window, causal, main-path shape?)
     cases = [("planted-sm", 16, 160, 2, 1, 16, 16, f32, GLOBAL, True, False),
-             ("planted-lg", 16, 160, 4, 1, 24, 24, f32, GLOBAL, True, False),
+             ("planted-lg", 16, 160, 4, 1, 24, 24, f32, GLOBAL, True, True),
              ("planted-lg-window", 16, 160, 4, 1, 24, 24, f32, 8, True,
               False),
              ("llama8b-S512", 4, 512, 8, 4, 128, 128, bf16, GLOBAL, True,
@@ -360,12 +387,14 @@ def _prefill_cases(torch, gen, tol, flush):
               True, False),
              ("noncausal-G3", 2, 200, 2, 3, 24, 24, f32, GLOBAL, False,
               False),
-             ("dk-ne-dv", 2, 130, 2, 2, 32, 48, f32, 17, True, False)]
+             ("dk-ne-dv", 2, 130, 2, 2, 32, 48, f32, 17, True, False),
+             ("dk-ne-dv-bf16", 2, 130, 2, 2, 32, 48, bf16, 17, True, False)]
     out = []
     for label, B, S, KV, G, dk, dv, dt, window, causal, main in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
         q, k, v = rnd(B, S, KV, G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dv)
+        body = PA.body(dt, dk, dv)
 
         def kern():
             return PA.prefill_attention(q, k, v, window=window,
@@ -380,46 +409,73 @@ def _prefill_cases(torch, gen, tol, flush):
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         err_blocked = float((got.float() - blocked.float()).abs().max())
-        row = dict(kernel="prefill_attention", shape=label, B=B, S=S, KV=KV,
-                   G=G, dk=dk, dv=dv, dtype=str(dt)[6:], window=window,
-                   causal=causal, max_abs_err=err,
+        row = dict(kernel="prefill_attention", body=body, shape=label, B=B,
+                   S=S, KV=KV, G=G, dk=dk, dv=dv, dtype=str(dt)[6:],
+                   window=window, causal=causal, max_abs_err=err,
                    max_abs_err_vs_blocked=err_blocked, tol=tol[dt],
                    main_path_shape=main)
-        row["ok"] = bool(max(err, err_blocked) <= tol[dt]
-                         and math.isfinite(err) and math.isfinite(err_blocked))
+        errs = [err, err_blocked]
+        llama = label.startswith("llama8b")
+        if llama:
+            def twin():
+                return ref.prefill_attention_tc_twin(q, k, v, window=window,
+                                                     causal=causal)
+            row["max_abs_err_vs_twin"] = float(
+                (got.float() - twin().float()).abs().max())
+            errs.append(row["max_abs_err_vs_twin"])
+            row["twin_ms"] = time_ms(torch, twin, flush, iters=3, warmup=1)
+            row["fma_body_ms"] = time_ms(
+                torch, lambda: _prefill_fma(PA, q, k, v, window, causal),
+                flush)
+        row["ok"] = bool(max(errs) <= tol[dt]
+                         and all(math.isfinite(e) for e in errs))
         row["kernel_ms"] = time_ms(torch, kern, flush)
         row["bound_ms"], row["bound_by"], row["f32_fma_ms"] = \
             prefill_bound(q, k, v, window, causal)
-        if window == GLOBAL and causal:
+        if (window == GLOBAL and causal) or llama:
             row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
             row["blocked_ms"] = time_ms(
                 torch, lambda: flash_attention(q.reshape(B, S, KV * G, dk),
-                                               k, v, window), flush, iters=5)
+                                               k, v, window, causal=causal),
+                flush, iters=5)
             # yardstick: one SDPA call, heads first, K/V shared by G heads
+            # (a window needs an explicit mask)
             qs = q.reshape(B, S, KV * G, dk).transpose(1, 2)
             ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+            mask = None
+            if window != GLOBAL:
+                pos = torch.arange(S, device="cuda")
+                d = pos[:, None] - pos[None, :]
+                mask = (d >= 0) & (d < window)
             row["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True), flush)
+                    qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True), flush)
         out.append(row)
         emit("kernel", **row)
         if not row["ok"]:
-            die("kernel", f"prefill_attention at {label}: error {err} vs the "
-                          f"oracle, {err_blocked} vs the blocked attention")
+            die("kernel", f"prefill_attention at {label}: errors {errs} vs "
+                          f"the oracle, the blocked attention, the twin")
     # batch invariance: item 1's first 300 rows alone vs in the S 512 batch
-    q = torch.randn((3, 512, 8, 4, 128), generator=gen, device="cuda").to(bf16)
-    k = torch.randn((3, 512, 8, 128), generator=gen, device="cuda").to(bf16)
-    v = torch.randn((3, 512, 8, 128), generator=gen, device="cuda").to(bf16)
-    same = []
-    for window in (GLOBAL, 100):
-        batched = PA.prefill_attention(q, k, v, window=window)
-        alone = PA.prefill_attention(q[1:2, :300], k[1:2, :300],
-                                     v[1:2, :300], window=window)
-        torch.cuda.synchronize()
-        same.append(bool(torch.equal(alone[0], batched[1, :300])))
-    emit("kernel_edges", kernel="prefill_attention", dtype="bfloat16",
-         batch_invariant=all(same), ok=all(same))
-    if not all(same):
+    same = {}
+    for dt in (bf16, f32):
+        q = torch.randn((3, 512, 8, 4, 128), generator=gen, device="cuda")
+        k = torch.randn((3, 512, 8, 128), generator=gen, device="cuda")
+        v = torch.randn((3, 512, 8, 128), generator=gen, device="cuda")
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        for G in (4, 3):
+            qg = q[:, :, :, :G].contiguous()
+            for window in (GLOBAL, 100):
+                batched = PA.prefill_attention(qg, k, v, window=window)
+                alone = PA.prefill_attention(qg[1:2, :300], k[1:2, :300],
+                                             v[1:2, :300], window=window)
+                torch.cuda.synchronize()
+                same[f"{PA.body(dt, 128, 128)} G{G} window {window}"] = \
+                    bool(torch.equal(alone[0], batched[1, :300]))
+    ok = all(same.values())
+    emit("kernel_edges", kernel="prefill_attention", batch_invariant=same,
+         ok=ok)
+    if not ok:
         die("kernel", f"prefill_attention batch invariance: {same}")
     return out
 
@@ -1255,9 +1311,46 @@ KERNEL_META = {
     "expected_attention_scores": (
         "src/repro_torch/csrc/expected_attention.cu",
         "src/repro/kernels/expected_attention.py:38"),
-    "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
-                          "src/repro/kernels/prefill_attention.py:28"),
 }
+# kernel D's two bodies, each a kernel of its own in the kernels line
+PREFILL_BODIES = {
+    "tc": ("src/repro_torch/csrc/prefill_attention_tc.cu",
+           "src/repro/kernels/prefill_attention.py:28"),
+    "fma": ("src/repro_torch/csrc/prefill_attention.cu",
+            "src/repro/kernels/prefill_attention.py:28"),
+}
+
+
+def _check_prefill_bodies(paths):
+    """D's body on each path: the tensor-core body on every 8B path that
+    builds profiles and on no planted one, the FMA body on no 8B path."""
+    for path, counts in paths.items():
+        by_body = counts["prefill_attention_by_body"]
+        if "llama8b" in path:
+            if by_body["fma"] or (counts["prefill_attention"]
+                                  and not by_body["tc"]):
+                die("kernels", f"{path} launched D's FMA body or no "
+                               f"tensor-core body: {by_body}")
+        elif by_body["tc"]:
+            die("kernels", f"planted path {path} launched D's tensor-core "
+                           f"body: {by_body}")
+    for path in ("llama8b", "session_llama8b", "session_join_llama8b"):
+        if paths[path]["prefill_attention_by_body"]["tc"] <= 0:
+            die("kernels", f"{path} launched no tensor-core body of D")
+
+
+def _kernel_entry(name, source, replaces, rows, launches_by_path):
+    row = [r for r in rows if r.get("main_path_shape")][0]
+    if sum(launches_by_path.values()) <= 0:
+        die("kernels", f"{name} was launched on no Session path")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -1281,8 +1374,8 @@ def main() -> int:
         rows = phase_kernels(torch, flush)
         del flush
         phase_planted(torch)
-        _, params = phase_llama8b(torch)
         paths = {}
+        paths["llama8b"], params = phase_llama8b(torch)
         paths["session_planted"], paths["session_planted_scan"] = \
             phase_session_planted(torch)
         paths["session_join_planted"], paths["session_join_planted_hand"] \
@@ -1292,23 +1385,19 @@ def main() -> int:
         paths["session_join_llama8b"] = phase_session_join_llama8b(torch,
                                                                    params)
         del params
+        _check_prefill_bodies(paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
-        main_rows = [r for r in rows[name] if r.get("main_path_shape")]
-        row = main_rows[0]
-        by_path = {p: c[name] for p, c in paths.items()}
-        if sum(by_path.values()) <= 0:
-            die("kernels", f"{name} was launched on no Session path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+    session_paths = {p: c for p, c in paths.items() if p != "llama8b"}
+    kernels = [_kernel_entry(name, source, replaces, rows[name],
+                             {p: c[name] for p, c in session_paths.items()})
+               for name, (source, replaces) in KERNEL_META.items()]
+    for body, (source, replaces) in PREFILL_BODIES.items():
+        kernels.append(_kernel_entry(
+            f"prefill_attention_{body}", source, replaces,
+            [r for r in rows["prefill_attention"] if r["body"] == body],
+            {p: c["prefill_attention_by_body"][body]
+             for p, c in session_paths.items()}))
     emit("summary", ok=True, seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

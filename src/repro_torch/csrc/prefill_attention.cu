@@ -1,5 +1,9 @@
 // Causal / windowed flash attention over whole sequences (the offline
-// prefill), for Hopper (sm_90a).
+// prefill), for Hopper (sm_90a): the float32 FMA body of kernel D. It
+// serves float32 inputs (the planted models, whose decisions sit at the
+// float32 tolerance) and bfloat16 head dims that are not multiples of 16;
+// other bfloat16 inputs run the tensor-core body, prefill_attention_tc.cu
+// (kernels/prefill_attention.py picks the body).
 //
 // Replaces the Pallas TPU kernel repro/kernels/prefill_attention.py
 // (prefill_attention -> _prefill_kernel). Query position i attends to key
@@ -18,13 +22,10 @@
 // head g = r % G) of one KV head, with BQ = 64 / G positions, so a CTA
 // reads each K/V tile once for all G heads that share it.
 //
-// What bounds it on the H100: at the prefill shapes the arithmetic. A
-// causal pass over (B 4, S 1024, KV 8, G 4, d 128, bf16) does about 34
-// GFLOP (2 * (dk + dv) per live (query row, key) pair) and moves about
-// 84 MB (q, k, v read once, out written once): 0.035 ms on the bf16
-// tensor cores (989 TFLOP/s dense) against 0.025 ms of memory traffic.
-// This kernel does its dot products as float32 FMAs, not on the tensor
-// cores (see below): 0.51 ms of work at the card's 67 TFLOP/s.
+// What bounds it on the H100: float32 operands run outside the tensor
+// cores, at 67 TFLOP/s. At the planted build shapes (B 16, S 160, d 16 and
+// 24) that is under 0.002 ms of work per call, so a call is bound by its
+// launch and its serial walk over key tiles (PERF.md).
 //
 // What the design does about it, kept simple and right first:
 //  * One CTA per (query tile, KV head, batch row); 128 threads. Thread
@@ -41,10 +42,8 @@
 //    float32, with an odd row stride for Q and K so the 4 row groups of a
 //    warp read different banks. At d 128 that is about 74 KB, above the
 //    48 KB default, so the launcher raises the dynamic limit.
-//  * Scores and P·V are float32 FMAs; exp is expf (full precision). The
-//    Pallas kernel feeds float32 operands to the MXU; wgmma over bf16
-//    operands with TMA-fed tiles is the route to the tensor-core rate and
-//    is later work.
+//  * Scores and P·V are float32 FMAs; exp is expf (full precision), as
+//    the Pallas kernel feeds float32 operands to the MXU.
 //  * No atomics and no split of S across CTAs: a row's sums run in one
 //    fixed order that depends only on its position, the window and the
 //    tile sizes, never on B or on S beyond the row (keys past a causal

@@ -5,7 +5,9 @@
                       the hot loop of Stretto's prefill-skip operators
   expected_attention  query-agnostic Expected-Attention compression scores
   prefill_attention   causal / windowed flash attention over whole
-                      sequences (the offline prefill and calibration)
+                      sequences (the offline prefill and calibration):
+                      a tensor-core body for bfloat16, an FMA body for
+                      float32
   ref                 plain PyTorch versions of every kernel
   ops                 backend-selecting wrappers (auto | cuda | ref)
   build               nvcc + ctypes loader for csrc/*.cu

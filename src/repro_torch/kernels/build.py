@@ -31,7 +31,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_attention", "expected_attention", "prefill_attention")
+SOURCES = ("decode_attention", "expected_attention", "prefill_attention",
+           "prefill_attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"

@@ -62,12 +62,18 @@ def use_kernel(backend, x: torch.Tensor) -> bool:
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches per kernel, plus D's per body under
+    `prefill_attention_by_body` ({"tc": n, "fma": n})."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["prefill_attention_by_body"] = dict(
+        _pa.prefill_attention.launches_by_body)
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _pa.reset_launch_counts()
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernel for causal / windowed prefill attention
-(`csrc/prefill_attention.cu`).
+"""Hand-written CUDA kernel D for causal / windowed prefill attention, in
+two bodies (`csrc/prefill_attention_tc.cu`, `csrc/prefill_attention.cu`).
 
 Replaces the Pallas `repro.kernels.prefill_attention.prefill_attention`:
 
@@ -11,10 +11,26 @@ causal, j <= i; the softmax runs online in float32 with the finite mask
 -1e30. `window` is an int >= 1 (GLOBAL = 2^30 means full attention;
 larger values clamp); 1 <= G <= 64, dk <= 256, dv <= 128.
 
+The body, by one rule (`body()`), from the dtype and head dims alone:
+
+  tc   bfloat16 with dk % 16 == 0 and dv % 16 == 0: wgmma on the tensor
+       cores, K / V tiles by TMA (`prefill_attention_tc.cu`; sm_90a)
+  fma  everything else (float32, or bf16 head dims the tensor-core tiles
+       do not take): float32 FMAs through shared memory
+       (`prefill_attention.cu`)
+
+A body is never picked because another failed to build or launch. The
+float32 body keeps float32 operands (the planted models' decisions sit at
+the float32 tolerance); the tc body feeds P to the tensor cores as two
+bf16 parts (high and low), so P V keeps about 16 bits of P. The tc
+body's blocked algorithm has a CPU twin,
+`kernels/ref.prefill_attention_tc_twin`, for the tests.
+
 CUDA tensors only; the plain version `kernels/ref.prefill_attention_ref`
 serves CPU tensors (see `kernels/ops.py`). Launches are counted in
-`prefill_attention.launches`. The source header says what bounds the
-kernel on the H100 and how its design meets it.
+`prefill_attention.launches`, and per body in
+`prefill_attention.launches_by_body`. Each source header says what bounds
+its body on the H100 and how its design meets it.
 """
 from __future__ import annotations
 
@@ -30,16 +46,32 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _count_lock = threading.Lock()
 _bound = set()
+BODIES = ("tc", "fma")
+# body -> (source, C entry point, argtypes after the 4 pointers and 8 ints)
+_ENTRY = {"tc": ("prefill_attention_tc", "stretto_prefill_attention_tc",
+                 [_F, _P]),
+          "fma": ("prefill_attention", "stretto_prefill_attention",
+                  [_F, _I, _P])}
 
 
-def _lib():
-    lib = build.load("prefill_attention")
-    if "sig" not in _bound:
-        f = lib.stretto_prefill_attention
-        f.argtypes = [_P] * 4 + [_I] * 8 + [_F, _I, _P]
+def body(dtype, dk: int, dv: int) -> str:
+    """The body that runs these inputs: `tc` for bfloat16 with dk and dv
+    multiples of 16 (the wgmma depth and TMA's 16-byte rows), else
+    `fma`."""
+    if dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0:
+        return "tc"
+    return "fma"
+
+
+def _entry(which: str):
+    source, name, tail = _ENTRY[which]
+    lib = build.load(source)
+    f = getattr(lib, name)
+    if which not in _bound:
+        f.argtypes = [_P] * 4 + [_I] * 8 + tail
         f.restype = _I
-        _bound.add("sig")
-    return lib
+        _bound.add(which)
+    return f
 
 
 def check_window(window) -> int:
@@ -79,14 +111,30 @@ def prefill_attention(q, k, v, *, window=GLOBAL,
                          f"and dv <= 128; got G {G}, dk {dk}, dv {dv}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, S, KV, G, dv), dtype=q.dtype, device=q.device)
-    err = _lib().stretto_prefill_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, KV,
-        G, dk, dv, window, int(bool(causal)), dk ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, what)
+    which = body(q.dtype, dk, dv)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            KV, G, dk, dv, window, int(bool(causal)), dk ** -0.5]
+    if which == "tc":
+        # the tensor maps and the 16-byte loads need 16-byte aligned bases
+        # (the strides, multiples of dk or dv elements, are then aligned)
+        bad = [n for n, t in (("q", q), ("k", k), ("v", v))
+               if t.data_ptr() % 16]
+        if bad:
+            raise ValueError(f"{what}: the tensor-core body needs 16-byte "
+                             f"aligned tensors; {bad} are not")
+    else:
+        args.append(_DTYPES[q.dtype])
+    args.append(torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(_entry(which)(*args), what)
     with _count_lock:
         prefill_attention.launches += 1
+        prefill_attention.launches_by_body[which] += 1
     return out
 
 
-prefill_attention.launches = 0
+def reset_launch_counts() -> None:
+    prefill_attention.launches = 0
+    prefill_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+reset_launch_counts()

@@ -6,6 +6,9 @@ scores are the finite NEG_INF, so a row that sees no position gets the
 mean of V over all S positions, as in the JAX package. The
 wrappers in `kernels/ops.py` use them for tensors on the CPU, and
 `chip_smoke.py` holds each hand kernel against them on the card.
+`prefill_attention_tc_twin` is no plain version: it repeats the blocked
+algorithm of kernel D's tensor-core body, for the tests and
+`chip_smoke.py`, and no wrapper calls it.
 """
 from __future__ import annotations
 
@@ -94,6 +97,76 @@ def prefill_attention_ref(q, k, v, *, window: int = GLOBAL,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.to(q.dtype)
+
+
+TC_ROWS, TC_BK = 128, 64      # the tensor-core body's tile: rows, keys
+LOG2E = 1.4426950408889634
+
+
+def prefill_attention_tc_twin(q, k, v, *, window: int = GLOBAL,
+                              causal: bool = True):
+    """Eager twin of the tensor-core body of kernel D
+    (`csrc/prefill_attention_tc.cu`): its blocked algorithm and rounding
+    points, for the tests and `chip_smoke.py` (never the main path).
+
+    Query tiles of 128 // G positions (x G heads); per tile, key tiles of
+    64 positions in increasing order from the first the window reaches to
+    the tile of the last query's diagonal, zero-filled past S. bf16 q, k
+    and v; float32 scores times dk^-0.5 * log2 e, masked to -1e30; the
+    online softmax in float32 with exp2; P split into a bf16 high part and
+    a bf16 low part (P - high) for P V, each product summed in float32;
+    out = acc / max(l, 1e-30) in q's dtype. Each item is computed on its
+    own, so its rows do not depend on the batch."""
+    B, S, KV, G, dk = q.shape
+    dv = v.shape[-1]
+    bq, bk = TC_ROWS // G, TC_BK
+    n_k = -(-S // bk)
+    pad = n_k * bk - S
+    bf = torch.bfloat16
+    kp = torch.nn.functional.pad(k.to(bf), (0, 0, 0, 0, 0, pad)).float()
+    vp = torch.nn.functional.pad(v.to(bf), (0, 0, 0, 0, 0, pad)).float()
+    # whole query tiles too (zero rows past S), so every product has one
+    # shape whatever S is
+    q_pad = -(-S // bq) * bq - S
+    qf = torch.nn.functional.pad(q.to(bf), (0, 0, 0, 0, 0, 0, 0, q_pad)) \
+        .float()
+    scale2 = dk ** -0.5 * LOG2E
+    out = torch.empty((B, S, KV, G, dv), dtype=q.dtype, device=q.device)
+    for q0 in range(0, S, bq):
+        q_last = min(q0 + bq, S) - 1
+        k_end = q_last + 1 if causal else S
+        t_first = max(0, q0 - window + 1) // bk
+        qpos = torch.arange(q0, q0 + bq, device=q.device)
+        for b in range(B):
+            qt = qf[b, q0:q0 + bq]                        # (bq, KV, G, dk)
+            m = torch.full(qt.shape[:3], NEG_INF, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(qt.shape[:3] + (dv,), device=q.device)
+            for t in range(t_first, (k_end - 1) // bk + 1):
+                p0 = t * bk
+                kt, vt = kp[b, p0:p0 + bk], vp[b, p0:p0 + bk]
+                s = torch.einsum("nhgd,khd->nhgk", qt, kt) * scale2
+                kpos = torch.arange(p0, p0 + bk, device=q.device)
+                live = (kpos[None, :] < S) & \
+                    ((qpos[:, None] - kpos[None, :]) < window)
+                if causal:
+                    live = live & (kpos[None, :] <= qpos[:, None])
+                s = torch.where(live[:, None, None, :], s,
+                                torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp2(s - m_new[..., None])
+                alpha = torch.exp2(m - m_new)
+                l = l * alpha + p.sum(-1)
+                p_hi = p.to(bf).float()
+                p_lo = (p - p_hi).to(bf).float()
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "nhgk,khd->nhgd", p_hi, vt) + torch.einsum(
+                    "nhgk,khd->nhgd", p_lo, vt)
+                m = m_new
+            n = q_last + 1 - q0
+            out[b, q0:q_last + 1] = (acc[:n] / torch.clamp(
+                l[:n], min=1e-30)[..., None]).to(q.dtype)
+    return out
 
 
 def expected_attention_scores_ref(k_cache, mu, sig2):

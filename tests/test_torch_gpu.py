@@ -243,14 +243,26 @@ def test_backends_on_cuda_int8_caches(gpu):
     torch.testing.assert_close(got1, want1, atol=2e-5, rtol=0)
 
 
-# (B, S, KV, G, dk, dv, dtype, window, causal): the planted widths, the 8B
-# widths at the profile builds' lengths, and non-causal, dk != dv, G 3
-PREFILL_CASES = [(16, 160, 2, 1, 16, 16, torch.float32, GLOBAL, True),
-                 (16, 160, 4, 1, 24, 24, torch.float32, 8, True),
-                 (4, 512, 8, 4, 128, 128, torch.bfloat16, GLOBAL, True),
-                 (4, 1024, 8, 4, 128, 128, torch.bfloat16, 256, True),
-                 (2, 200, 2, 3, 24, 40, torch.float32, GLOBAL, False),
-                 (2, 130, 2, 2, 32, 48, torch.bfloat16, 17, True)]
+# (B, S, KV, G, dk, dv, dtype, window, causal, body): the planted widths,
+# the 8B widths at the profile builds' lengths (S 512 and 1024, global and
+# window 256), S 300 (a ragged last tile), window 1, G 1, non-causal,
+# dk != dv, G 3, and a bf16 head dim the tensor-core tiles do not take.
+# `body` is the body kernels/prefill_attention.body picks, asserted from
+# the per-body launch counts.
+PREFILL_CASES = [
+    (16, 160, 2, 1, 16, 16, torch.float32, GLOBAL, True, "fma"),
+    (16, 160, 4, 1, 24, 24, torch.float32, 8, True, "fma"),
+    (4, 512, 8, 4, 128, 128, torch.bfloat16, GLOBAL, True, "tc"),
+    (4, 1024, 8, 4, 128, 128, torch.bfloat16, GLOBAL, True, "tc"),
+    (4, 1024, 8, 4, 128, 128, torch.bfloat16, 256, True, "tc"),
+    (2, 300, 8, 4, 128, 128, torch.bfloat16, GLOBAL, True, "tc"),
+    (2, 256, 2, 4, 128, 128, torch.bfloat16, 1, True, "tc"),
+    (2, 256, 8, 1, 128, 128, torch.bfloat16, GLOBAL, True, "tc"),
+    (2, 200, 2, 3, 64, 64, torch.bfloat16, 17, True, "tc"),
+    (2, 200, 2, 2, 128, 128, torch.bfloat16, GLOBAL, False, "tc"),
+    (2, 200, 2, 3, 24, 40, torch.float32, GLOBAL, False, "fma"),
+    (2, 130, 2, 2, 32, 48, torch.bfloat16, 17, True, "tc"),
+    (2, 130, 2, 2, 24, 24, torch.bfloat16, GLOBAL, True, "fma")]
 
 
 def _prefill_inputs(seed, B, S, KV, G, dk, dv, dtype):
@@ -261,13 +273,21 @@ def _prefill_inputs(seed, B, S, KV, G, dk, dv, dtype):
     return rnd(B, S, KV, G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dv)
 
 
-@pytest.mark.parametrize("B,S,KV,G,dk,dv,dtype,window,causal",
+@pytest.mark.parametrize("B,S,KV,G,dk,dv,dtype,window,causal,body",
                          PREFILL_CASES)
 def test_prefill_attention_matches_plain(gpu, B, S, KV, G, dk, dv, dtype,
-                                         window, causal):
+                                         window, causal, body):
+    """Against the plain version and the blocked `flash_attention` at the
+    dtype's tolerance; the tensor-core body also against its CPU twin's
+    algorithm run on the card (same tolerance: the two differ only in the
+    order of float32 sums)."""
     from repro_torch.models.layers import flash_attention
     q, k, v = _prefill_inputs(S + dk, B, S, KV, G, dk, dv, dtype)
+    before = dict(ops.launch_counts()["prefill_attention_by_body"])
     got = PA.prefill_attention(q, k, v, window=window, causal=causal)
+    after = ops.launch_counts()["prefill_attention_by_body"]
+    assert {b: after[b] - before[b] for b in after} == \
+        {b: int(b == body) for b in after}
     want = ref.prefill_attention_ref(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
@@ -276,18 +296,27 @@ def test_prefill_attention_matches_plain(gpu, B, S, KV, G, dk, dv, dtype,
                               causal=causal).reshape(got.shape)
     torch.testing.assert_close(got.float(), blocked.float(),
                                atol=TOL[dtype], rtol=0)
+    if body == "tc":
+        twin = ref.prefill_attention_tc_twin(q, k, v, window=window,
+                                             causal=causal)
+        torch.testing.assert_close(got.float(), twin.float(),
+                                   atol=TOL[dtype], rtol=0)
 
 
-def test_prefill_output_does_not_depend_on_batch_or_padding(gpu):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_output_does_not_depend_on_batch_or_padding(gpu, dtype):
     """An item's rows are bit-identical alone and inside a larger batch
-    padded further: a row's sums run in one order fixed by its position,
-    and keys past a causal row add exact zeros."""
-    q, k, v = _prefill_inputs(7, 3, 512, 8, 4, 128, 128, torch.bfloat16)
-    for window in (GLOBAL, 100):
-        batched = PA.prefill_attention(q, k, v, window=window)
-        alone = PA.prefill_attention(q[1:2, :300], k[1:2, :300],
-                                     v[1:2, :300], window=window)
-        assert torch.equal(alone[0], batched[1, :300])
+    padded further, in both bodies (bfloat16: tensor cores, float32: FMA):
+    a row's sums run in one order fixed by its position, and keys past a
+    causal row add exact zeros."""
+    q, k, v = _prefill_inputs(7, 3, 512, 8, 4, 128, 128, dtype)
+    for G in (4, 3):
+        qg = q[:, :, :, :G].contiguous()
+        for window in (GLOBAL, 100):
+            batched = PA.prefill_attention(qg, k, v, window=window)
+            alone = PA.prefill_attention(qg[1:2, :300], k[1:2, :300],
+                                         v[1:2, :300], window=window)
+            assert torch.equal(alone[0], batched[1, :300])
 
 
 def test_prefill_backends_on_cuda_tensors(gpu):
@@ -316,10 +345,16 @@ def test_llama8b_prefill_kernel_matches_blocked_attention(gpu):
     params = init_params(cfg, gen, device="cuda")
     toks = torch.randint(3, 1000, (2, 384), generator=gen, device="cuda")
     lengths = torch.tensor([384, 300], dtype=torch.int32, device="cuda")
-    before = ops.launch_counts()["prefill_attention"]
+    before = ops.launch_counts()
     got = prefill(params, cfg, toks, lengths=lengths, kernels="cuda")
-    assert ops.launch_counts()["prefill_attention"] == \
-        before + cfg.n_layers
+    after = ops.launch_counts()
+    assert after["prefill_attention"] == \
+        before["prefill_attention"] + cfg.n_layers
+    # bfloat16, d 128: every layer on the tensor-core body
+    by_body = {b: after["prefill_attention_by_body"][b]
+               - before["prefill_attention_by_body"][b]
+               for b in ("tc", "fma")}
+    assert by_body == {"tc": cfg.n_layers, "fma": 0}
     want = prefill(params, cfg, toks, lengths=lengths, kernels="ref")
     for a, b in ((got[0], want[0]), (got[1]["k"], want[1]["k"]),
                  (got[1]["v"], want[1]["v"])):

@@ -364,3 +364,92 @@ def test_prefill_kernel_wrapper_refuses_cpu_tensors():
         ops.prefill_attention(q, k, k, backend="cuda")
     assert ops.launch_counts() == before
     assert "prefill_attention" in before
+
+
+# The tensor-core body of kernel D (bf16): its CPU twin
+# (kernels/ref.prefill_attention_tc_twin) walks the body's tiles (128 // G
+# query positions x 64 keys, from the first tile the window reaches to the
+# last query's diagonal), rounds q, k and v to bfloat16, splits P into a
+# bfloat16 high and low part and sums in float32. Held to the JAX oracle
+# everywhere and to the Pallas kernel (interpret mode) where its blocks
+# divide S, at the bf16 tolerance 2e-2: both sides round the output to
+# bfloat16 (one step at these magnitudes), and the split P moves an
+# output by far less.
+TWIN_CASES = [
+    # (B, S, KV, G, dk, dv, window, causal, Pallas block or None)
+    (2, 150, 2, 4, 32, 32, GLOBAL, True, 150),      # S not a multiple
+    (1, 256, 2, 4, 64, 64, 1, True, 64),            # window 1
+    (1, 200, 2, 3, 32, 32, 17, True, 200),          # G 3, window 17
+    (1, 512, 1, 4, 32, 32, 256, True, 128),         # window 256
+    (2, 130, 2, 2, 32, 48, 17, True, 130),          # dk != dv
+    (1, 192, 2, 1, 64, 64, GLOBAL, False, 64),      # G 1, non-causal
+    (1, 100, 1, 1, 16, 16, GLOBAL, True, None),     # G 1, one ragged tile
+    (1, 96, 2, 5, 16, 32, 33, False, 96),           # G 5, windowed, both ways
+]
+TWIN_TOL = 2e-2
+
+
+def _bf16_inputs(seed, B, S, KV, G, dk, dv):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(B, S, KV, G, dk)).astype(np.float32),
+            rng.normal(size=(B, S, KV, dk)).astype(np.float32),
+            rng.normal(size=(B, S, KV, dv)).astype(np.float32))
+    return ([jnp.asarray(a, jnp.bfloat16) for a in arrs],
+            [torch.from_numpy(a).to(torch.bfloat16) for a in arrs])
+
+
+@pytest.mark.parametrize("B,S,KV,G,dk,dv,window,causal,block", TWIN_CASES)
+def test_prefill_tc_twin_matches_jax(B, S, KV, G, dk, dv, window, causal,
+                                     block):
+    from repro.kernels import ref as jref
+    from repro.kernels.prefill_attention import prefill_attention as jpa
+    jargs, targs = _bf16_inputs(S * 7 + G + dv, B, S, KV, G, dk, dv)
+    got = ref.prefill_attention_tc_twin(*targs, window=window, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, KV, G, dv)
+    oracle = jref.prefill_attention_ref(*jargs, window=window, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=TWIN_TOL,
+                               rtol=0)
+    if block is not None:
+        pallas = jpa(*jargs, window=window, causal=causal, block_q=block,
+                     block_k=block, interpret=True)
+        np.testing.assert_allclose(_f32(got), _f32(pallas), atol=TWIN_TOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("G,window", [(4, GLOBAL), (4, 100), (3, GLOBAL),
+                                      (1, 17)])
+def test_prefill_tc_twin_is_batch_invariant(G, window):
+    """An item's rows are bit-identical alone and inside a larger batch
+    padded further: each item runs on its own over whole tiles, and keys
+    past a causal row add exact zeros."""
+    _, (q, k, v) = _bf16_inputs(G + window % 97, 3, 200, 2, G, 32, 32)
+    batched = ref.prefill_attention_tc_twin(q, k, v, window=window)
+    alone = ref.prefill_attention_tc_twin(q[1:2, :137], k[1:2, :137],
+                                          v[1:2, :137], window=window)
+    assert torch.equal(alone[0], batched[1, :137])
+
+
+@pytest.mark.parametrize("dtype,dk,dv,want", [
+    (torch.bfloat16, 128, 128, "tc"), (torch.bfloat16, 32, 48, "tc"),
+    (torch.bfloat16, 16, 16, "tc"), (torch.bfloat16, 256, 128, "tc"),
+    (torch.bfloat16, 24, 24, "fma"), (torch.bfloat16, 128, 40, "fma"),
+    (torch.bfloat16, 8, 16, "fma"), (torch.float32, 128, 128, "fma"),
+    (torch.float32, 16, 16, "fma"), (torch.float32, 24, 24, "fma")])
+def test_prefill_body_rule(dtype, dk, dv, want):
+    """One rule picks D's body, from the dtype and head dims alone: the
+    tensor-core body for bfloat16 with dk and dv multiples of 16, the FMA
+    body for everything else."""
+    from repro_torch.kernels import prefill_attention as pa
+    assert pa.body(dtype, dk, dv) == want
+
+
+def test_prefill_launch_counts_per_body_reset():
+    """D's per-body counts come with the launch counts and go back to 0
+    with them (the CPU route launches nothing)."""
+    from repro_torch.kernels import prefill_attention as pa
+    pa.prefill_attention.launches_by_body["tc"] += 2
+    assert ops.launch_counts()["prefill_attention_by_body"]["tc"] >= 2
+    ops.reset_launch_counts()
+    counts = ops.launch_counts()
+    assert counts["prefill_attention"] == 0
+    assert counts["prefill_attention_by_body"] == {"tc": 0, "fma": 0}
