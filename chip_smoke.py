@@ -10,14 +10,18 @@ Phases, one JSON line each:
            on the card, at the planted and the stretto-llama-8b shapes:
            max abs error within the stated tolerance, and its time beside
            the plain version's, the bound and (bf16/f32 attention) one SDPA
-           call; the decode kernels in float32/bfloat16 and over int8 K/V
-           (kernel_edges: rows that see no cache position, and an item's
-           output alone vs in a larger, further-padded batch); the prefill
+           call, under a write and a read L2 flush; the decode kernels in
+           float32/bfloat16 (also against their CPU twin's algorithm) and
+           over int8 K/V (kernel_edges: rows that see no cache position,
+           lengths at split boundaries, calls in a row on the same arrival
+           counters, and an item's output alone vs in a larger,
+           further-padded batch); the prefill
            kernel (D) also against the blocked `flash_attention`, causal
            and not, windowed and not, dk != dv, and batch invariance, in
            both bodies (tensor cores for bf16 at head dims that are
            multiples of 16, FMAs otherwise); its 8B rows also against the
-           tensor-core body's CPU twin, timed beside it and the FMA body
+           tensor-core body's CPU twin, timed beside it and the FMA body;
+           the FMA body's rows against its own twin
   planted  the planted sm/lg world (200 items) under a hand-written
            cascade plan through KVCacheBackend + run_plan; inline vs
            threads:2 bit-identical; the same plan on the CPU equal outside
@@ -98,17 +102,24 @@ def die(phase: str, err: str):
 # timing and bounds
 # --------------------------------------------------------------------------
 
-def time_ms(torch, fn, flush, iters=20, warmup=3) -> float:
+def time_ms(torch, fn, flush, iters=20, warmup=3, mode="write") -> float:
     """Median device time of fn() over `iters` launches, CUDA events, with
-    the 50 MB L2 cache flushed before each one. The flush (a 1 GB memset,
-    about 0.3 ms) also gives the host time to enqueue the call before the
-    card reaches the start event, so host overhead stays out of the time."""
+    the 50 MB L2 cache flushed before each one. The flush (1 GB, about 0.3
+    ms) also gives the host time to enqueue the call before the card
+    reaches the start event, so host overhead stays out of the time.
+    mode "write" flushes with a memset, which leaves L2 full of dirty
+    lines that the timed call's own reads must write back; "read" flushes
+    with a sum over the buffer, which leaves clean lines. Kernel rows are
+    timed both ways (`*_ms` and `*_ms_read`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     evs = []
     for _ in range(iters):
-        flush.zero_()
+        if mode == "write":
+            flush.zero_()
+        else:
+            flush.sum()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -235,6 +246,15 @@ def _decode_call(name, q, k, v, scales):
     return qq, run(kern), run(plain)
 
 
+def _decode_twin(name, q, k, v, lengths, window):
+    """The CPU twin of the float32 / bfloat16 decode body, run on the card
+    (A's for the query kernel, B's for the single-token one)."""
+    from repro_torch.kernels import ref
+    twin = (ref.decode_query_attention_twin if name.startswith("decode_query")
+            else ref.decode_attention_twin)
+    return twin(q, k, v, lengths, window=window)
+
+
 def phase_kernels(torch, flush):
     """Each kernel against its plain version at the path's shapes."""
     import torch.nn.functional as F
@@ -270,17 +290,27 @@ def phase_kernels(torch, flush):
                 row = dict(kernel=name, shape=label, B=B, Lq=Lq, KV=KV, G=G,
                            dk=dk, S=S, dtype=str(dt)[6:], window=window,
                            kv_dtype="int8" if quant else str(dt)[6:],
-                           max_abs_err=err, tol=tol[dt],
-                           ok=bool(err <= tol[dt] and math.isfinite(err)))
+                           max_abs_err=err, tol=tol[dt])
+                errs = [err]
+                if not quant:
+                    twin = _decode_twin(name, qq, kk, vv, lengths, window)
+                    row["max_abs_err_vs_twin"] = float(
+                        (got.float() - twin.float()).abs().max())
+                    errs.append(row["max_abs_err_vs_twin"])
+                row["ok"] = bool(max(errs) <= tol[dt]
+                                 and all(math.isfinite(e) for e in errs))
                 if Lq == 1 and not label.endswith("window"):
                     row["kernel_ms"] = time_ms(
                         torch, lambda: kern(lengths, window), flush)
+                    row["kernel_ms_read"] = time_ms(
+                        torch, lambda: kern(lengths, window), flush,
+                        mode="read")
                     row["plain_ms"] = time_ms(
                         torch, lambda: plain(lengths, window), flush,
                         iters=5)
                     row["bound_ms"], row["bound_by"] = decode_bound(
                         qq, kk, vv, lengths, window, 8 if quant else 0)
-                    row["library_ms"] = None
+                    row["library_ms"] = row["library_ms_read"] = None
                     if not quant:
                         # yardstick: one SDPA call on head-expanded K/V
                         # (no single PyTorch call dequantises int8)
@@ -294,14 +324,18 @@ def phase_kernels(torch, flush):
                         mask = ((pos[None, None, :] <= qpos[:, :, None])
                                 & ((qpos[:, :, None] - pos[None, None, :])
                                    < window))[:, None]
-                        row["library_ms"] = time_ms(
-                            torch, lambda: F.scaled_dot_product_attention(
-                                qs, ke, ve, attn_mask=mask), flush)
+                        def sdpa():
+                            return F.scaled_dot_product_attention(
+                                qs, ke, ve, attn_mask=mask)
+                        row["library_ms"] = time_ms(torch, sdpa, flush)
+                        row["library_ms_read"] = time_ms(torch, sdpa, flush,
+                                                         mode="read")
                     row["main_path_shape"] = main
                 rows[name].append(row)
                 emit("kernel", **row)
                 if not row["ok"]:
-                    die("kernel", f"{name} at {label} Lq={Lq}: error {err}")
+                    die("kernel", f"{name} at {label} Lq={Lq}: errors {errs}"
+                                  f" vs the plain version and the twin")
     _decode_edge_cases(torch, gen, tol)
     rows["prefill_attention"] = _prefill_cases(torch, gen, tol, flush)
     ea_cases = [("llama8b", 1, 1024, 8, 4, 128, bf16, True),
@@ -321,8 +355,10 @@ def phase_kernels(torch, flush):
                    KV=KV, G=G, dk=dk, dtype=str(dt)[6:], max_abs_err=err,
                    tol=etol, ok=bool(err <= etol and math.isfinite(err)),
                    main_path_shape=main)
-        row["kernel_ms"] = time_ms(torch, lambda: EA.expected_attention_scores(
-            k, mu, sig2), flush)
+        def ea():
+            return EA.expected_attention_scores(k, mu, sig2)
+        row["kernel_ms"] = time_ms(torch, ea, flush)
+        row["kernel_ms_read"] = time_ms(torch, ea, flush, mode="read")
         row["plain_ms"] = time_ms(torch, lambda: ref
                                   .expected_attention_scores_ref(k, mu, sig2),
                                   flush)
@@ -331,7 +367,7 @@ def phase_kernels(torch, flush):
         # mu and sig2 are float32: the float32 rate
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, B * S * KV * G * dk * 4, torch.float32)
-        row["library_ms"] = None
+        row["library_ms"] = row["library_ms_read"] = None
         rows["expected_attention_scores"].append(row)
         emit("kernel", **row)
         if not row["ok"]:
@@ -416,6 +452,13 @@ def _prefill_cases(torch, gen, tol, flush):
                    main_path_shape=main)
         errs = [err, err_blocked]
         llama = label.startswith("llama8b")
+        if body == "fma":
+            row["max_abs_err_vs_twin"] = float((got.float() - ref
+                                                .prefill_attention_fma_twin(
+                                                    q, k, v, window=window,
+                                                    causal=causal).float())
+                                               .abs().max())
+            errs.append(row["max_abs_err_vs_twin"])
         if llama:
             def twin():
                 return ref.prefill_attention_tc_twin(q, k, v, window=window,
@@ -430,6 +473,7 @@ def _prefill_cases(torch, gen, tol, flush):
         row["ok"] = bool(max(errs) <= tol[dt]
                          and all(math.isfinite(e) for e in errs))
         row["kernel_ms"] = time_ms(torch, kern, flush)
+        row["kernel_ms_read"] = time_ms(torch, kern, flush, mode="read")
         row["bound_ms"], row["bound_by"], row["f32_fma_ms"] = \
             prefill_bound(q, k, v, window, causal)
         if (window == GLOBAL and causal) or llama:
@@ -447,15 +491,17 @@ def _prefill_cases(torch, gen, tol, flush):
                 pos = torch.arange(S, device="cuda")
                 d = pos[:, None] - pos[None, :]
                 mask = (d >= 0) & (d < window)
-            row["library_ms"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
+            def sdpa():
+                return F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True), flush)
+                    enable_gqa=True)
+            row["library_ms"] = time_ms(torch, sdpa, flush)
+            row["library_ms_read"] = time_ms(torch, sdpa, flush, mode="read")
         out.append(row)
         emit("kernel", **row)
         if not row["ok"]:
             die("kernel", f"prefill_attention at {label}: errors {errs} vs "
-                          f"the oracle, the blocked attention, the twin")
+                          f"the oracle, the blocked attention, the twins")
     # batch invariance: item 1's first 300 rows alone vs in the S 512 batch
     same = {}
     for dt in (bf16, f32):
@@ -512,13 +558,39 @@ def _decode_edge_cases(torch, gen, tol):
             torch.cuda.synchronize()
             same = bool(torch.equal(kern(lens)[0], kern1(lens[:1])[0]))
             err = max(errs)
-            ok = err <= tol[dt] and math.isfinite(err) and same
+            extra = {}
+            if not quant:
+                extra = _decode_split_edges(torch, name, q, k, v, dt)
+            ok = (err <= tol[dt] and math.isfinite(err) and same
+                  and all(extra.get(key, True) for key in
+                          ("split_boundaries_ok", "repeat_equal")))
             emit("kernel_edges", kernel=name, dtype=str(dt)[6:],
                  no_position_rows_max_abs_err=err, tol=tol[dt],
-                 batch_invariant=same, ok=ok)
+                 batch_invariant=same, **extra, ok=ok)
             if not ok:
                 die("kernel", f"{name} {dt}: rows that see no position err "
-                              f"{err} or batch invariance {same}")
+                              f"{err}, batch invariance {same} or {extra}")
+
+
+def _decode_split_edges(torch, name, q, k, v, dt):
+    """Lengths one below, at and one above each multiple of the float32 /
+    bfloat16 body's split size, against the plain version; and three
+    calls in a row on the same arrival counters, bit-identical."""
+    from repro_torch.kernels import decode_attention as DA
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    S = k.shape[1]
+    n = [s * DA.SPLIT + o for s in range(1, S // DA.SPLIT) for o in (-1, 0, 1)]
+    lengths = torch.tensor(n, dtype=torch.int32, device="cuda")
+    idx = torch.arange(len(n), device="cuda") % q.shape[0]
+    qq, kk, vv = q[idx], k[idx], v[idx]
+    _, kern, plain = _decode_call(name, qq, kk, vv, ())
+    got = kern(lengths)
+    err = float((got.float() - plain(lengths).float()).abs().max())
+    again = [kern(lengths) for _ in range(2)]
+    torch.cuda.synchronize()
+    return dict(split_boundary_lengths=len(n), split_boundaries_max_abs_err=err,
+                split_boundaries_ok=bool(err <= tol and math.isfinite(err)),
+                repeat_equal=all(bool(torch.equal(got, a)) for a in again))
 
 
 # A hand-set plan holds the runtime to fixed stages (the Session phases run
@@ -1185,8 +1257,12 @@ def phase_session_join_planted(torch):
     _check_join("session_join_planted", result, metrics, counts)
     plan = result.raw.plan
 
-    # the hand-set plan on the card, counts from 0
+    # the hand-set plan on the card, counts from 0, from a cold device LRU
+    # as the CPU runs below start: a hit loads no bytes (kv_bytes counts
+    # real loads), and metrics() above ran gold over every item, which
+    # leaves batches of a gold-first role resident
     hand = _hand_tree(plan)
+    sess.engine.evict()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     hand_run = sess.run_tree(hand, left.items, right.items)
@@ -1214,6 +1290,7 @@ def phase_session_join_planted(torch):
     checks = {}
     for name, tree, card in (("planned", plan, result.raw),
                              ("hand", hand, hand_run)):
+        cpu_eng.evict()
         cpu = cpu_sess.run_tree(tree, left.items, right.items)
         checks[name] = _tree_card_vs_cpu(
             "session_join_planted", sess.backend, tree, card, cpu,
@@ -1348,7 +1425,8 @@ def _kernel_entry(name, source, replaces, rows, launches_by_path):
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "ms": row["kernel_ms"], "ms_read_flush": row["kernel_ms_read"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]}
 

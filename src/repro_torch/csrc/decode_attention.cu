@@ -10,8 +10,9 @@
 //     _decode_kernel_int8): K and V are int8 with one float32 scale per
 //     (item, position, KV head), dequantised in float32 as int8 * scale
 //     right after the load from shared memory.
-// The four entry points below launch the same two kernel templates; each
-// keeps its own C symbol so the Python wrappers count their launches apart.
+// The four entry points below launch two bodies: the float32 / bfloat16
+// body (namespace fp) and the int8 body (namespace i8); each entry keeps
+// its own C symbol so the Python wrappers count their launches apart.
 //
 // Layouts (row-major, contiguous). q and out share one type TQ (float32 or
 // bfloat16); K and V have type TKV, which is TQ or int8:
@@ -26,53 +27,75 @@
 // Rows that see no cache position (lengths < Lq, or a window that excludes
 // every position) get the mean of V over all S positions given, padding
 // included: the Pallas kernels mask with a finite -1e30, so such a row's
-// softmax is uniform over every position, and this kernel returns the same.
+// softmax is uniform over every position, and these kernels return the
+// same.
 //
 // What bounds it on the H100: bytes. Every query row of a KV head reads the
-// whole visible K/V of that head once, and there are only Lq*G rows (4 at
-// stretto-llama-8b with Lq = 1, 1 on the planted models), far too few rows
-// to feed a tensor-core tile (wgmma needs M = 64). At the 8B shapes (B 14,
-// S 1152 after padding, KV 8, dk = dv = 128, bfloat16) one layer call reads
-// about 66 MB of K and V: about 20 us at 3.35 TB/s. The int8 bodies read 1
-// byte per element plus 8 bytes of scales per (position, head), a little
-// over half of that. The arithmetic, 4 FMAs per K or V element at 8B (and
-// one multiply per element to dequantise), is far below the card's rate.
+// whole visible K/V of that head once, and there are only R = Lq*G rows (4
+// at stretto-llama-8b with Lq = 1, 1 on the planted models), far too few
+// rows to fill a wgmma tile (M = 64). At the 8B shapes (B
+// 14, S 1152 after padding, KV 8, dk = dv = 128, bfloat16) one layer call
+// reads up to 66 MB of K and V: about 20 us at 3.35 TB/s. The arithmetic,
+// 4 FMAs per K or V element at 8B, is far below the card's rate, so the
+// body has to keep enough loads in flight and spend few instructions per
+// element.
 //
-// What the design does about it:
-//  * Split-S ("FlashDecoding"): one CTA per (split, kv head, item), each
-//    over a fixed chunk of CHUNK cache positions, so an 8B layer call runs
-//    about 1000 CTAs and keeps every SM streaming. The TPU kernel instead
-//    walks S in order and carries (m, l, acc) across grid steps; no Hopper
-//    block can do that, so a second small kernel combines the splits.
-//  * A CTA handles all Lq*G query rows of its KV head, so each K/V byte
-//    is read from device memory once for all of them.
-//  * A CTA first copies its chunk's visible K and V rows into shared
-//    memory with 16-byte vector loads (neighbouring threads, neighbouring
-//    addresses; every load independent of the others, so a CTA keeps its
-//    whole chunk in flight at once instead of one row per thread). At 8B
-//    that is 64 KB per CTA, two CTAs (16 warps) per SM.
-//  * The number of query rows held in registers (RT: 1, 4 or 16) is a
-//    template parameter chosen from Lq*G, so the inner loops carry no
-//    predicated work for rows that do not exist.
-//  * QK: a group of W threads shares one cache position and reads its K
-//    row from shared memory, then reduces the W partial dots with
-//    shuffles. PV: one thread per output dimension reads V from shared
-//    memory; no cross-thread sum is needed at dv = 128.
-//  * Positions at or beyond an item's length, and whole chunks outside
-//    every row's window, are never read: a padded or compressed batch
-//    streams only the bytes it needs.
-//  * Determinism: the chunk size is fixed, so the splits depend on S alone
-//    and a position always falls into the same split. A split an item
-//    cannot see writes (m = -inf, l = 0, acc = 0), and the combine adds
-//    them in a fixed order as exact zeros. An item's output therefore does
-//    not depend on the batch it rides in or on how far the batch is padded.
-//  * Odd head dims (24 on the planted lg model) fall back to scalar loads
-//    bounded by dk, which masks the ragged edge. int8 rows take 16-element
-//    vectors, so dk = 24 takes the scalar path there too.
-//  * int8: the chunk's K/V rows are staged as int8 (a quarter of the
-//    float32 bytes in shared memory and from device memory) with the
-//    chunk's scales beside them, and dequantised element by element as
-//    they are read for the dot products.
+// The float32 / bfloat16 body (fp), and what it does about that:
+//  * Split-S ("FlashDecoding"): one CTA of 8 warps per (split, kv head,
+//    item) over SPLIT = 128 cache positions, 16 per warp. The split size
+//    is a constant, so the splits depend on S alone. An 8B layer call runs
+//    9 x 8 x 14 CTAs, about half of them live, 3 resident per SM.
+//  * A CTA handles all R query rows of its KV head, so each K/V byte is
+//    read from device memory once for all of them.
+//  * Loads issued up front, q's first: each warp copies its own 16 K rows,
+//    then its 16 V rows, into shared memory with 16-byte cp.async (two
+//    commit groups); Q.K starts when K lands, while V is still in flight,
+//    and only warp-level syncs guard the copies. Positions outside the
+//    item's visible span are zero-filled, never read. A row's stride is an
+//    odd number of 16-byte chunks, so the 8 rows an ldmatrix (or a
+//    quarter-warp) reads sit in distinct banks.
+//  * bfloat16 with dk, dv multiples of 16 up to 128 (the 8B model): Q.K^T
+//    and P.V on the tensor cores, mma.sync m16n8k16 with the R rows padded
+//    to 8 or 16 (raw bf16 q; the scores, exact bf16 products summed in
+//    float32, are scaled afterwards), K and V fragments by ldmatrix. The
+//    softmax over the warp's 16 positions stays in the accumulator
+//    fragments (two shuffles per row statistic). P goes to P.V as a bf16
+//    high part and a bf16 low part (about 16 bits of P): a single bf16 P
+//    moved an 8B logit past the card test's bound for kernel D.
+//  * Everything else (float32, the planted models; odd head dims): float32
+//    FMAs. Lane (position ps = lane % 16, half = lane / 16) dots its half of
+//    the K row with every row of q, one shuffle adds the halves, and the
+//    softmax over the 16 positions runs in registers; for P.V each
+//    half-warp takes 8 positions and a lane 16 bytes of every V row, P
+//    broadcast by shuffle.
+//  * The 8 warps' (m, l, acc) merge in warp order (factors exp(m_w - M)
+//    computed once per row) into the split's partial; each warp's acc sits
+//    in its own K rows when one row tile covers R. One launch: each (item,
+//    kv head) has an arrival counter in a scratch int buffer the wrapper
+//    keeps per stream; one thread fences the CTA's partial and counts its
+//    arrival, and the CTA that arrives last merges the live splits in split
+//    order (weights and denominators once per (split, row) in shared
+//    memory) and resets the counter to 0, so the result does not depend on
+//    which CTA merges. An item with one live split writes its output
+//    directly (the value the merge would give).
+//  * Only live splits run: a split outside every row's visible span exits
+//    at once and is not counted, so a padded or windowed batch streams
+//    only the bytes it needs.
+//  * Determinism: a position always falls into the same split and the same
+//    warp; every sum runs in an order fixed by the position, and splits
+//    that an item cannot see are never merged. An item's output therefore
+//    does not depend on the batch it rides in or on how far the batch is
+//    padded.
+//  * What holds it back now (PERF.md): after its loads land, a CTA still
+//    spends several microseconds on its products, the warp merge, and the
+//    fence and arrival, during which its slot loads nothing.
+//  * Head dims that 16-byte vectors do not split evenly take element-wise
+//    loads; dk, dv <= 256.
+//
+// The int8 body (i8): one CTA of 256 threads per 128-position chunk,
+// staged whole in shared memory as int8 with its scales; the scores, the
+// softmax (a warp per row) and P.V run in three phases behind block
+// barriers, and a second kernel combines the splits in split order.
 //
 // The window arrives as an int clamped to 2^30 by the wrapper (the JAX
 // wrapper's int32 window overflows beyond that).
@@ -81,12 +104,10 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <algorithm>
 #include <type_traits>
 
 namespace {
-
-constexpr int THREADS = 256;  // threads per CTA
-constexpr int CHUNK = 128;    // cache positions per split
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -127,6 +148,711 @@ __device__ __forceinline__ void load_vec(const T* p, float* out) {
     for (int e = 0; e < 16; ++e) out[e] = (float)h[e];
   }
 }
+
+// ===========================================================================
+// float32 / bfloat16 body
+// ===========================================================================
+namespace fp {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int SUB = 16;               // cache positions per warp
+constexpr int SPLIT = WARPS * SUB;    // cache positions per CTA (one split)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t SMEM_MAX = 232448;   // an H100 block's shared memory
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cache positions some query row of an item can see: [lo, hi], empty
+// when lo > hi. Row i (q_pos = length - Lq + i) sees (q_pos - window, q_pos].
+struct Span {
+  int lo, hi;
+};
+__device__ __forceinline__ Span visible(int length, int Lq, int S,
+                                        int window) {
+  Span s;
+  s.hi = min(length - 1, S - 1);
+  s.lo = window < 1 ? s.hi + 1 : max(0, length - Lq - window + 1);
+  return s;
+}
+
+// Rows p_first .. p_first + SUB - 1 of one (item, KV head) into dst (row
+// stride `stride` elements); row p lives at src[(row0 + p * KV) * width].
+// Rows outside [lo, hi] are zero-filled and not read. VEC > 1: 16-byte
+// cp.async (one commit group per call, issued by the caller); VEC == 1:
+// element-wise loads.
+template <typename T, int VEC>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
+                                           long row0, int KV, int p_first,
+                                           Span vis, int width, int stride,
+                                           int lane) {
+  if constexpr (VEC > 1) {
+    // chunk i = lane + 32 n is (row r, vector c); step (r, c) without a
+    // division per chunk
+    const int nc = width / VEC;
+    const int dr = 32 / nc, dc = 32 - dr * nc;
+    int r = lane / nc, c = lane - r * nc;
+    for (; r < SUB; r += dr) {
+      const int p = p_first + r;
+      const bool ok = p >= vis.lo && p <= vis.hi;
+      const T* g = ok ? src + (row0 + (long)p * KV) * width + c * VEC : src;
+      cp_async16(dst + r * stride + c * VEC, g, ok ? 16 : 0);
+      c += dc;
+      if (c >= nc) {
+        c -= nc;
+        ++r;
+      }
+    }
+  } else {
+    for (int i = lane; i < SUB * width; i += 32) {
+      const int r = i / width, c = i - r * width;
+      const int p = p_first + r;
+      dst[r * stride + c] = (p >= vis.lo && p <= vis.hi)
+                                ? src[(row0 + (long)p * KV) * width + c]
+                                : from_f<T>(0.f);
+    }
+  }
+}
+
+// The mean of V over all S positions of (item b, KV head kv), column d:
+// the value of a row that sees no position.
+template <typename T>
+__device__ float mean_v(const T* __restrict__ v, int b, int kv, int d, int S,
+                        int KV, int dv) {
+  float sum = 0.f;
+  for (int p = 0; p < S; ++p)
+    sum += to_f(v[(((long)b * S + p) * KV + kv) * dv + d]);
+  return sum / (float)S;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_out(T* __restrict__ out, int b, int r,
+                                          int kv, int d, int Lq, int KV,
+                                          int G, int dv, float o) {
+  const int qi = r / G, g = r - qi * G;
+  out[(((long)(b * Lq + qi) * KV + kv) * G + g) * dv + d] = from_f<T>(o);
+}
+
+// ---- tensor-core helpers (bfloat16 body) ---------------------------------
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// x = bf16 high part + bf16 low part (about 16 bits of x): hi, lo packed
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+// The last CTA of (b, kv): the n_live splits' partials from `base` merged
+// in split order, o = sum_s acc_s w_s / sum_s l_s w_s with w_s = exp(m_s -
+// max m). m and l are copied to shared memory, where the weights and the
+// denominators are computed once per (split, row); a thread then owns MV
+// consecutive output columns of one row and reads the splits' acc from L2
+// (other SMs wrote them), several in flight. smem holds 2 (n_live + 1) R
+// floats.
+template <typename T, int MV>
+__device__ void merge_splits(T* __restrict__ out, const T* __restrict__ v,
+                             const float* part_m, const float* part_l,
+                             const float* part_acc, int n_live, int b, int kv,
+                             int Lq, int KV, int G, int dv, int S, int R,
+                             float* smem) {
+  const int nm = n_live * R;
+  float* w = smem;              // [n_live][R]: m, then the weights
+  float* l = w + nm;            // [n_live][R]
+  float* mx = l + nm;           // [R]
+  float* den = mx + R;          // [R]; -1 for a row that sees nothing
+  for (int i = threadIdx.x; i < nm; i += THREADS) {
+    w[i] = __ldcg(part_m + i);
+    l[i] = __ldcg(part_l + i);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    float M = -INFINITY;
+    for (int s = 0; s < n_live; ++s) M = fmaxf(M, w[s * R + r]);
+    mx[r] = M;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nm; i += THREADS) {
+    const float M = mx[i % R];
+    w[i] = M == -INFINITY ? 0.f : expf(w[i] - M);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    float d = 0.f;
+    for (int s = 0; s < n_live; ++s) d += l[s * R + r] * w[s * R + r];
+    den[r] = mx[r] == -INFINITY ? -1.f : d;
+  }
+  __syncthreads();
+  const int per_row = dv / MV;
+  for (int i = threadIdx.x; i < R * per_row; i += THREADS) {
+    const int r = i / per_row, d0 = (i - r * per_row) * MV;
+    float o[MV];
+    if (den[r] >= 0.f) {
+      float num[MV];
+#pragma unroll
+      for (int e = 0; e < MV; ++e) num[e] = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < n_live; ++s) {
+        const float ws = w[s * R + r];
+        const float* pa = part_acc + ((long)s * R + r) * dv + d0;
+        if constexpr (MV == 4) {
+          const float4 x = __ldcg(reinterpret_cast<const float4*>(pa));
+          num[0] += x.x * ws; num[1] += x.y * ws;
+          num[2] += x.z * ws; num[3] += x.w * ws;
+        } else {
+          num[0] += __ldcg(pa) * ws;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < MV; ++e) o[e] = num[e] / den[r];
+    } else {
+#pragma unroll
+      for (int e = 0; e < MV; ++e) o[e] = mean_v(v, b, kv, d0 + e, S, KV, dv);
+    }
+#pragma unroll
+    for (int e = 0; e < MV; ++e)
+      store_out(out, b, r, kv, d0 + e, Lq, KV, G, dv, o[e]);
+  }
+}
+
+// One CTA: item b, KV head kv, cache positions [split * SPLIT, + SPLIT).
+// Query rows go RT at a time.
+//  MMA (bfloat16, dk and dv multiples of 16 up to 128): Q.K^T and P.V on
+//    mma.sync m16n8k16, RT = 8 or 16 rows padded to 16; K and V fragments
+//    by ldmatrix; P as a bf16 high and low part.
+//  else (FMA): a lane of a half-warp holds E output columns of each row
+//    (E / VEC vectors of VEC elements).
+template <typename T, int VEC, int RT, int E, bool MMA>
+__global__ void __launch_bounds__(THREADS)
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const int* __restrict__ lens,
+             T* __restrict__ out, float* __restrict__ part_m,
+             float* __restrict__ part_l, float* __restrict__ part_acc,
+             int* __restrict__ arrivals, int Lq, int KV, int G, int dk,
+             int dv, int S, int window, float scale, int kst, int vst,
+             int wacc_in_k) {
+  static_assert(E % VEC == 0, "a lane holds whole vectors of V");
+  static_assert(!MMA || (std::is_same<T, __nv_bfloat16>::value &&
+                         (RT == 8 || RT == 16)),
+                "the tensor-core path takes bfloat16 and 8 or 16 rows");
+  constexpr int QPT = 8;          // q elements a thread loads up front
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int is_last;
+  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
+  const int R = Lq * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int length = lens[b];
+  const Span vis = visible(length, Lq, S, window);
+  const int n_live = vis.lo > vis.hi ? 0 : vis.hi / SPLIT - vis.lo / SPLIT + 1;
+  const int s_lo = n_live ? vis.lo / SPLIT : 0;
+  const long bk = (long)b * KV + kv;
+
+  if (n_live == 0 || split < s_lo || split >= s_lo + n_live) {
+    if (n_live == 0 && split == 0) {   // no row of this item sees anything
+      for (int i = tid; i < R * dv; i += THREADS) {
+        const int r = i / dv, d = i - r * dv;
+        store_out(out, b, r, kv, d, Lq, KV, G, dv,
+                  mean_v(v, b, kv, d, S, KV, dv));
+      }
+    }
+    return;
+  }
+
+  // shared memory: K and V rows; q (scaled float32, or raw bf16 for the
+  // tensor cores); each warp's (m, l) and its acc, which sits in the
+  // warp's own K rows when one row tile covers R (K is no longer read
+  // then); the merge factors
+  T* ks = reinterpret_cast<T*>(smem_raw);                   // [SPLIT][kst]
+  T* vs = ks + SPLIT * kst;                                 // [SPLIT][vst]
+  float* qs = reinterpret_cast<float*>(vs + SPLIT * vst);   // [R][dk]
+  T* qb = reinterpret_cast<T*>(qs);
+  float* wm = qs + (MMA ? (R * dk + 1) / 2 : R * dk);       // [WARPS][R]
+  float* wl = wm + WARPS * R;                               // [WARPS][R]
+  float* cf = wl + WARPS * R;                               // [WARPS][R]
+  float* cl = cf + WARPS * R;                               // [R]
+  float* wacc_all = cl + R;                                 // [WARPS][R][dv]
+  auto wacc_of = [&](int w) {
+    return wacc_in_k ? reinterpret_cast<float*>(ks + w * SUB * kst)
+                     : wacc_all + w * R * dv;
+  };
+  float* wacc = wacc_of(warp);                              // [R][dv]
+
+  // ---- loads first: q (the first QPT elements a thread stages, into
+  // registers), then this warp's K rows, then its V rows ----------------
+  auto q_at = [&](int i) {
+    const int r = i / dk, d = i - r * dk;
+    const int qi = r / G, g = r - qi * G;
+    return q[(((long)(b * Lq + qi) * KV + kv) * G + g) * dk + d];
+  };
+  T q_reg[QPT];
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {
+    const int i = tid + j * THREADS;
+    q_reg[j] = i < R * dk ? q_at(i) : from_f<T>(0.f);
+  }
+  const int pw = split * SPLIT + warp * SUB;    // the warp's first position
+  const bool warp_live = pw <= vis.hi && pw + SUB - 1 >= vis.lo;
+  const long row0 = (long)b * S * KV + kv;      // row (b, 0, kv)
+  if (warp_live) {
+    stage_rows<T, VEC>(ks + warp * SUB * kst, k, row0, KV, pw, vis, dk, kst,
+                       lane);
+    cp_async_commit();
+    stage_rows<T, VEC>(vs + warp * SUB * vst, v, row0, KV, pw, vis, dv, vst,
+                       lane);
+    cp_async_commit();
+  }
+  auto put_q = [&](int i, T x) {
+    if constexpr (MMA)
+      qb[i] = x;
+    else
+      qs[i] = to_f(x) * scale;
+  };
+#pragma unroll
+  for (int j = 0; j < QPT; ++j)
+    if (tid + j * THREADS < R * dk) put_q(tid + j * THREADS, q_reg[j]);
+  for (int i = tid + QPT * THREADS; i < R * dk; i += THREADS)
+    put_q(i, q_at(i));
+  __syncthreads();
+
+  if (warp_live) {
+    const int first_q = length - Lq;
+    cp_async_wait<1>();                          // K landed
+    __syncwarp();
+    if constexpr (MMA) {
+      // fragment coordinates: g = lane / 4 (row, and key / column within an
+      // 8-wide tile), t = lane % 4; ldmatrix: matrix lane / 8, row lane % 8
+      const int g = lane >> 2, t = lane & 3;
+      const int mi = lane >> 3, mr = lane & 7;
+      const int dk16 = dk >> 4, dv16 = dv >> 4;
+      const T* kw = ks + warp * SUB * kst;
+      const T* vw = vs + warp * SUB * vst;
+      const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qb);
+      for (int r0 = 0; r0 < R; r0 += RT) {
+        const int ra = r0 + g, rb = r0 + g + 8;  // this lane's two rows
+        const bool va = ra < R, vb = RT == 16 && rb < R;
+        // ---- S = Q K^T: 16 rows x 16 positions, dk / 16 steps ----
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          if (kk < dk16) {
+            uint32_t a[4], bb[4];
+            const int c = (kk * 16 + 2 * t) >> 1;   // in bf16 pairs
+            a[0] = va ? q32[(ra * dk >> 1) + c] : 0u;
+            a[1] = vb ? q32[(rb * dk >> 1) + c] : 0u;
+            a[2] = va ? q32[(ra * dk >> 1) + c + 4] : 0u;
+            a[3] = vb ? q32[(rb * dk >> 1) + c + 4] : 0u;
+            ldsm_x4(bb, kw + ((mi >> 1) * 8 + mr) * kst + kk * 16 +
+                            (mi & 1) * 8);
+            mma_bf16(sc[0], a, bb[0], bb[1]);
+            mma_bf16(sc[1], a, bb[2], bb[3]);
+          }
+        }
+        __syncwarp();            // K read: its rows may take the acc now
+        // ---- mask and softmax over the 16 positions, per row; the 4
+        // lanes of a quad share a row ----
+        float pr[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {            // h = 0: row ra, 1: rb
+          const int r = h ? rb : ra;
+          const int q_pos = first_q + r / G;
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = pw + (e >> 1) * 8 + 2 * t + (e & 1);
+            const bool live = (h ? vb : va) && p <= vis.hi && p <= q_pos &&
+                              q_pos - p < window;
+            x[e] = live ? sc[e >> 1][2 * h + (e & 1)] * scale : -INFINITY;
+          }
+          float m = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
+          float l = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ex = (m == -INFINITY) ? 0.f : expf(x[e] - m);
+            pr[e >> 1][2 * h + (e & 1)] = ex;
+            l += ex;
+          }
+          l += __shfl_xor_sync(FULL, l, 1);
+          l += __shfl_xor_sync(FULL, l, 2);
+          if (t == 0 && (h ? vb : va)) {
+            wm[warp * R + r] = m;
+            wl[warp * R + r] = l;
+          }
+        }
+        // P as the A operand (k = the 16 positions), high and low parts
+        uint32_t ph[4], plo[4];
+        split_bf16(pr[0][0], pr[0][1], ph[0], plo[0]);
+        split_bf16(pr[0][2], pr[0][3], ph[1], plo[1]);
+        split_bf16(pr[1][0], pr[1][1], ph[2], plo[2]);
+        split_bf16(pr[1][2], pr[1][3], ph[3], plo[3]);
+        if (r0 == 0) {
+          cp_async_wait<0>();                      // V landed
+          __syncwarp();
+        }
+        // ---- O = P V: 16 rows x dv, 16 columns per ldmatrix ----
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j < dv16) {
+            uint32_t bb[4];
+            ldsm_x4_t(bb, vw + ((mi & 1) * 8 + mr) * vst + j * 16 +
+                              (mi >> 1) * 8);
+            float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            mma_bf16(o[0], ph, bb[0], bb[1]);
+            mma_bf16(o[0], plo, bb[0], bb[1]);
+            mma_bf16(o[1], ph, bb[2], bb[3]);
+            mma_bf16(o[1], plo, bb[2], bb[3]);
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              const int c = j * 16 + n * 8 + 2 * t;
+              if (va) {
+                wacc[ra * dv + c] = o[n][0];
+                wacc[ra * dv + c + 1] = o[n][1];
+              }
+              if (vb) {
+                wacc[rb * dv + c] = o[n][2];
+                wacc[rb * dv + c + 1] = o[n][3];
+              }
+            }
+          }
+        }
+      }
+    } else {
+      const int ps = lane & 15, hf = lane >> 4, j = lane & 15;
+      const int p = pw + ps;                     // this lane's Q.K position
+      const T* krow = ks + (warp * SUB + ps) * kst;
+      for (int r0 = 0; r0 < R; r0 += RT) {
+        const int nr = min(RT, R - r0);          // uniform across the warp
+        // ---- Q.K over this lane's half of dk ----
+        float s[RT];
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) s[rr] = 0.f;
+        if constexpr (VEC > 1) {
+          const int nh = dk / (2 * VEC);         // vectors per half
+          for (int c = hf * nh; c < (hf + 1) * nh; ++c) {
+            float kf[VEC];
+            load_vec<T, VEC>(krow + c * VEC, kf);
+#pragma unroll
+            for (int rr = 0; rr < RT; ++rr) {
+              if (RT == 1 || rr < nr) {
+                const float4* q4 = reinterpret_cast<const float4*>(
+                    qs + (r0 + rr) * dk + c * VEC);
+#pragma unroll
+                for (int e4 = 0; e4 < VEC / 4; ++e4) {
+                  const float4 x = q4[e4];
+                  s[rr] = fmaf(x.x, kf[4 * e4 + 0], s[rr]);
+                  s[rr] = fmaf(x.y, kf[4 * e4 + 1], s[rr]);
+                  s[rr] = fmaf(x.z, kf[4 * e4 + 2], s[rr]);
+                  s[rr] = fmaf(x.w, kf[4 * e4 + 3], s[rr]);
+                }
+              }
+            }
+          }
+        } else {
+          const int dh = (dk + 1) / 2;
+          for (int d = hf * dh; d < min(dk, (hf + 1) * dh); ++d) {
+            const float kf = to_f(krow[d]);
+#pragma unroll
+            for (int rr = 0; rr < RT; ++rr)
+              if (RT == 1 || rr < nr)
+                s[rr] = fmaf(qs[(r0 + rr) * dk + d], kf, s[rr]);
+          }
+        }
+        // ---- the softmax over the warp's 16 positions, in registers ----
+        float pr[RT];
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) {
+          pr[rr] = 0.f;
+          if (RT == 1 || rr < nr) {
+            s[rr] += __shfl_xor_sync(FULL, s[rr], 16);
+            const int q_pos = first_q + (r0 + rr) / G;
+            const bool live = p <= vis.hi && p <= q_pos && q_pos - p < window;
+            const float x = live ? s[rr] : -INFINITY;
+            float m = x;
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+              m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+            const float e = (m == -INFINITY) ? 0.f : expf(x - m);
+            float l = e;
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+              l += __shfl_xor_sync(FULL, l, off);
+            pr[rr] = e;
+            if (lane == 0) {
+              wm[warp * R + r0 + rr] = m;
+              wl[warp * R + r0 + rr] = l;
+            }
+          }
+        }
+        if (r0 == 0) {
+          cp_async_wait<0>();                    // V landed
+        }
+        __syncwarp();            // V landed; K read (its rows may take acc)
+        // ---- P.V: half hf takes positions hf*8 .. hf*8+7 ----
+        float acc[RT][E];
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr)
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[rr][e] = 0.f;
+#pragma unroll 2
+        for (int i = 0; i < SUB / 2; ++i) {
+          const int src = hf * (SUB / 2) + i;
+          float pv[RT];
+#pragma unroll
+          for (int rr = 0; rr < RT; ++rr)
+            pv[rr] = (RT == 1 || rr < nr) ? __shfl_sync(FULL, pr[rr], src)
+                                          : 0.f;
+          const T* vrow = vs + (warp * SUB + src) * vst;
+#pragma unroll
+          for (int tt = 0; tt < E / VEC; ++tt) {
+            const int c0 = (j + 16 * tt) * VEC;
+            if (c0 < dv) {
+              float vf[VEC];
+              load_vec<T, VEC>(vrow + c0, vf);
+#pragma unroll
+              for (int rr = 0; rr < RT; ++rr)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                  acc[rr][tt * VEC + e] =
+                      fmaf(pv[rr], vf[e], acc[rr][tt * VEC + e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) {
+          if (RT == 1 || rr < nr) {
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[rr][e] += __shfl_xor_sync(FULL, acc[rr][e], 16);
+            if (hf == 0) {
+              float* dst = wacc + (r0 + rr) * dv;
+#pragma unroll
+              for (int tt = 0; tt < E / VEC; ++tt)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) {
+                  const int c = (j + 16 * tt) * VEC + e;
+                  if (c < dv) dst[c] = acc[rr][tt * VEC + e];
+                }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    for (int i = lane; i < R; i += 32) {
+      wm[warp * R + i] = -INFINITY;
+      wl[warp * R + i] = 0.f;
+    }
+    for (int i = lane; i < R * dv; i += 32) wacc[i] = 0.f;
+  }
+  __syncthreads();
+
+  // ---- the split's partial: the warps merged in warp order ----------------
+  // factors f_w = exp(m_w - M) per (warp, row), and l, once per row
+  const long prow = (bk * n_split + split) * R;
+  for (int r = tid; r < R; r += THREADS) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wm[w * R + r]);
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = M == -INFINITY ? 0.f : expf(wm[w * R + r] - M);
+      cf[w * R + r] = f;                           // 0 for an empty warp
+      l += wl[w * R + r] * f;
+    }
+    cl[r] = l;
+    if (n_live > 1) {
+      part_m[prow + r] = M;
+      part_l[prow + r] = l;
+    } else {
+      wm[r] = M;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < R * dv; i += THREADS) {
+    const int r = i / dv, d = i - r * dv;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) a += wacc_of(w)[r * dv + d] * cf[w * R + r];
+    if (n_live == 1) {
+      // the merge of one split: num / den with weight exp(M - M) = 1
+      store_out(out, b, r, kv, d, Lq, KV, G, dv,
+                wm[r] != -INFINITY ? a / cl[r]
+                                   : mean_v(v, b, kv, d, S, KV, dv));
+    } else {
+      part_acc[(prow + r) * dv + d] = a;
+    }
+  }
+  if (n_live == 1) return;
+
+  // ---- the last CTA of (b, kv) to arrive merges the splits in order: one
+  // thread fences the CTA's partial (the barrier orders the others' writes
+  // before it) and counts the arrival ----
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const int prev = atomicAdd(arrivals + bk, 1);
+    is_last = prev == n_live - 1;
+    if (is_last) {
+      arrivals[bk] = 0;                  // ready for the next launch
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!is_last) return;
+  const long base = (bk * n_split + s_lo) * R;
+  if (dv % 4 == 0)
+    merge_splits<T, 4>(out, v, part_m + base, part_l + base,
+                       part_acc + base * dv, n_live, b, kv, Lq, KV, G, dv, S,
+                       R, reinterpret_cast<float*>(smem_raw));
+  else
+    merge_splits<T, 1>(out, v, part_m + base, part_l + base,
+                       part_acc + base * dv, n_live, b, kv, Lq, KV, G, dv, S,
+                       R, reinterpret_cast<float*>(smem_raw));
+}
+
+struct Args {
+  const void* q; const void* k; const void* v; const int* lens; void* out;
+  float* pm; float* pl; float* pacc; int* arrivals;
+  int B, Lq, KV, G, dk, dv, S, window; float scale;
+  cudaStream_t stream;
+};
+
+// Row stride in elements: an odd number of 16-byte chunks (VEC > 1), so
+// the 8 rows a quarter-warp (or an ldmatrix) reads fall in distinct banks;
+// else the width.
+template <int VEC>
+int row_stride(int width) {
+  if (VEC == 1) return width;
+  const int chunks = width / VEC;
+  return (chunks | 1) * VEC;
+}
+
+template <typename T, int VEC, int RT, int E, bool MMA>
+cudaError_t launch_typed(const Args& a) {
+  const int n_split = (a.S + SPLIT - 1) / SPLIT;
+  const int kst = row_stride<VEC>(a.dk), vst = row_stride<VEC>(a.dv);
+  const size_t R = (size_t)a.Lq * a.G;
+  const size_t n_split_max = n_split;
+  // each warp's acc in its own K rows when one row tile covers R
+  const int in_k = R <= (size_t)RT &&
+                   R * a.dv * sizeof(float) <= SUB * kst * sizeof(T);
+  const size_t q_floats = MMA ? (R * a.dk + 1) / 2 : R * a.dk;
+  size_t smem = sizeof(T) * SPLIT * (size_t)(kst + vst) +
+                sizeof(float) * (q_floats + 3 * WARPS * R + R +
+                                 (in_k ? 0 : WARPS * R * a.dv));
+  // the final merge's m, l and denominators reuse the same memory
+  smem = std::max(smem, sizeof(float) * 2 * (n_split_max + 1) * R);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kern = split_kernel<T, VEC, RT, E, MMA>;
+  static size_t smem_opted = 48 * 1024;   // per instantiation
+  if (smem > smem_opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_opted = smem;
+  }
+  dim3 grid(n_split, a.KV, a.B);
+  kern<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.out), a.pm, a.pl,
+      a.pacc, a.arrivals, a.Lq, a.KV, a.G, a.dk, a.dv, a.S, a.window,
+      a.scale, kst, vst, in_k);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_rows(const Args& a) {
+  const bool wide = a.dv > 128;
+  if (a.Lq * a.G == 1)
+    return wide ? launch_typed<T, VEC, 1, 16, false>(a)
+                : launch_typed<T, VEC, 1, 8, false>(a);
+  return wide ? launch_typed<T, VEC, 4, 16, false>(a)
+              : launch_typed<T, VEC, 4, 8, false>(a);
+}
+
+template <typename T>
+cudaError_t launch_any(const Args& a) {
+  if (a.dk < 1 || a.dv < 1 || a.dk > 256 || a.dv > 256 || a.S < 1)
+    return cudaErrorInvalidValue;
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.v) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.q) % 4 == 0;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (aligned && a.dk % 16 == 0 && a.dv % 16 == 0 && a.dk <= 128 &&
+        a.dv <= 128)
+      return a.Lq * a.G <= 8 ? launch_typed<T, VEC, 8, VEC, true>(a)
+                             : launch_typed<T, VEC, 16, VEC, true>(a);
+  }
+  if (aligned && a.dk % (2 * VEC) == 0 && a.dv % VEC == 0)
+    return launch_rows<T, VEC>(a);
+  return launch_rows<T, 1>(a);
+}
+
+int launch(const Args& a, int dtype) {
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch_any<float>(a);
+  else if (dtype == 1)
+    e = launch_any<__nv_bfloat16>(a);
+  else
+    e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+}  // namespace fp
+
+// ===========================================================================
+// int8 body
+// ===========================================================================
+namespace i8 {
+
+constexpr int THREADS = 256;  // threads per CTA
+constexpr int CHUNK = 128;    // cache positions per split
 
 __device__ __forceinline__ int pow2_at_least(int n, int cap) {
   int w = 1;
@@ -429,44 +1155,47 @@ cudaError_t launch_any(const Args& a) {
   return launch_rows<TQ, TKV, 1>(a);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out; k and v too unless int8)
-int launch(const Args& a, int dtype, bool int8_kv) {
+// dtype: 0 = float32, 1 = bfloat16 (q and out)
+int launch(const Args& a, int dtype) {
   cudaError_t e;
   if (dtype == 0)
-    e = int8_kv ? launch_any<float, int8_t>(a) : launch_any<float, float>(a);
+    e = launch_any<float, int8_t>(a);
   else if (dtype == 1)
-    e = int8_kv ? launch_any<__nv_bfloat16, int8_t>(a)
-                : launch_any<__nv_bfloat16, __nv_bfloat16>(a);
+    e = launch_any<__nv_bfloat16, int8_t>(a);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
 }
 
+}  // namespace i8
+
 }  // namespace
 
 extern "C" {
 
-// Fused Lq-token query decode (replaces decode_query_attention).
+// Fused Lq-token query decode (replaces decode_query_attention). pm, pl,
+// pacc: (B, KV, n_split, Lq*G[, dv]) float32 partials; arrivals: B*KV ints,
+// zero before the launch and zero again after it.
 int stretto_decode_query_attention(const void* q, const void* k, const void* v,
                                    const int* lens, void* out, float* pm,
-                                   float* pl, float* pacc, int B, int Lq,
-                                   int KV, int G, int dk, int dv, int S,
-                                   int window, float scale, int dtype,
-                                   void* stream) {
-  const Args a{q, k, v, nullptr, nullptr, lens, out, pm, pl, pacc, B, Lq, KV,
-               G, dk, dv, S, window, scale, static_cast<cudaStream_t>(stream)};
-  return launch(a, dtype, false);
+                                   float* pl, float* pacc, int* arrivals,
+                                   int B, int Lq, int KV, int G, int dk,
+                                   int dv, int S, int window, float scale,
+                                   int dtype, void* stream) {
+  const fp::Args a{q, k, v, lens, out, pm, pl, pacc, arrivals, B, Lq, KV, G,
+                   dk, dv, S, window, scale, static_cast<cudaStream_t>(stream)};
+  return fp::launch(a, dtype);
 }
 
-// Single-token decode (replaces decode_attention): the same kernels at Lq=1.
+// Single-token decode (replaces decode_attention): the same kernel at Lq=1.
 int stretto_decode_attention(const void* q, const void* k, const void* v,
                              const int* lens, void* out, float* pm, float* pl,
-                             float* pacc, int B, int KV, int G, int dk, int dv,
-                             int S, int window, float scale, int dtype,
-                             void* stream) {
-  const Args a{q, k, v, nullptr, nullptr, lens, out, pm, pl, pacc, B, 1, KV,
-               G, dk, dv, S, window, scale, static_cast<cudaStream_t>(stream)};
-  return launch(a, dtype, false);
+                             float* pacc, int* arrivals, int B, int KV, int G,
+                             int dk, int dv, int S, int window, float scale,
+                             int dtype, void* stream) {
+  const fp::Args a{q, k, v, lens, out, pm, pl, pacc, arrivals, B, 1, KV, G,
+                   dk, dv, S, window, scale, static_cast<cudaStream_t>(stream)};
+  return fp::launch(a, dtype);
 }
 
 // int8 K/V with (B, S, KV) float32 scales (replaces _query_kernel_int8).
@@ -475,9 +1204,9 @@ int stretto_decode_query_attention_int8(
     const float* vsc, const int* lens, void* out, float* pm, float* pl,
     float* pacc, int B, int Lq, int KV, int G, int dk, int dv, int S,
     int window, float scale, int dtype, void* stream) {
-  const Args a{q, k, v, ksc, vsc, lens, out, pm, pl, pacc, B, Lq, KV, G, dk,
-               dv, S, window, scale, static_cast<cudaStream_t>(stream)};
-  return launch(a, dtype, true);
+  const i8::Args a{q, k, v, ksc, vsc, lens, out, pm, pl, pacc, B, Lq, KV, G,
+                   dk, dv, S, window, scale, static_cast<cudaStream_t>(stream)};
+  return i8::launch(a, dtype);
 }
 
 // int8 single-token decode (replaces _decode_kernel_int8).
@@ -486,9 +1215,9 @@ int stretto_decode_attention_int8(
     const float* vsc, const int* lens, void* out, float* pm, float* pl,
     float* pacc, int B, int KV, int G, int dk, int dv, int S, int window,
     float scale, int dtype, void* stream) {
-  const Args a{q, k, v, ksc, vsc, lens, out, pm, pl, pacc, B, 1, KV, G, dk,
-               dv, S, window, scale, static_cast<cudaStream_t>(stream)};
-  return launch(a, dtype, true);
+  const i8::Args a{q, k, v, ksc, vsc, lens, out, pm, pl, pacc, B, 1, KV, G,
+                   dk, dv, S, window, scale, static_cast<cudaStream_t>(stream)};
+  return i8::launch(a, dtype);
 }
 
 }  // extern "C"

@@ -23,6 +23,14 @@ A query row that sees no cache position (lengths < Lq, or a window that
 excludes every position) gets the mean of V over all S positions, as the
 JAX package's kernels and oracles return it.
 
+The float32 / bfloat16 wrappers launch one kernel per call (splits of
+SPLIT positions, merged by the last CTA of each (item, KV head) to
+arrive); its blocked algorithm has a CPU twin,
+`kernels/ref.decode_query_attention_twin`. The arrival counters live in
+an int buffer kept per (device, stream): each launch leaves it at zero.
+The int8 wrappers launch a split kernel over CHUNK positions and a
+combine kernel. dk and dv are at most 256.
+
 Every wrapper takes CUDA tensors only and launches the kernel; the plain
 versions in `kernels/ref.py` serve CPU tensors (see `kernels/ops.py`).
 The source header says what bounds the kernels on the H100 and how the
@@ -38,21 +46,24 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import GLOBAL
 
-CHUNK = 128                       # cache positions per split (the .cu's)
+SPLIT = 128           # cache positions per split, float32 / bf16 body
+CHUNK = 128           # cache positions per split, int8 body
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _count_lock = threading.Lock()
 _bound = set()
+_arrivals = {}                    # (device, stream) -> int32 counters
 
 
 def _lib():
     lib = build.load("decode_attention")
     if "sig" not in _bound:
         f = lib.stretto_decode_query_attention
-        f.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _P]
+        f.argtypes = [_P] * 9 + [_I] * 8 + [_F, _I, _P]
         f.restype = _I
         f = lib.stretto_decode_attention
-        f.argtypes = [_P] * 8 + [_I] * 7 + [_F, _I, _P]
+        f.argtypes = [_P] * 9 + [_I] * 7 + [_F, _I, _P]
         f.restype = _I
         f = lib.stretto_decode_query_attention_int8
         f.argtypes = [_P] * 10 + [_I] * 8 + [_F, _I, _P]
@@ -87,6 +98,9 @@ def _check(q, k_cache, v_cache, lengths, q_ndim: int, what: str,
                         f"and k, v of type {kv_dtype}; got q {q.dtype}, k "
                         f"{k_cache.dtype}, v {v_cache.dtype}")
     B, KV, dk = q.shape[0], q.shape[-3], q.shape[-1]
+    if not quant and max(dk, v_cache.shape[-1]) > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: the kernel takes dk, dv <= {MAX_HEAD_DIM}"
+                         f"; got {dk}, {v_cache.shape[-1]}")
     if k_cache.shape[0] != B or v_cache.shape[0] != B \
             or k_cache.shape[2] != KV or v_cache.shape[2] != KV \
             or k_cache.shape[3] != dk or k_cache.shape[1] != v_cache.shape[1]:
@@ -107,12 +121,25 @@ def _check(q, k_cache, v_cache, lengths, q_ndim: int, what: str,
     return out
 
 
-def _scratch(B, KV, S, R, dv, device):
-    n_split = (S + CHUNK - 1) // CHUNK
+def _scratch(B, KV, S, R, dv, device, chunk=CHUNK):
+    n_split = (S + chunk - 1) // chunk
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((B, KV, n_split, R), **f32),
             torch.empty((B, KV, n_split, R), **f32),
             torch.empty((B, KV, n_split, R, dv), **f32))
+
+
+def _arrival_counters(n: int, device) -> torch.Tensor:
+    """At least n int32 counters, all zero, for launches on the current
+    stream of `device`. Every launch leaves the counters it used at zero,
+    so the buffer is reused; a new one is made only when it must grow."""
+    key = (device, _stream(device))
+    with _count_lock:
+        buf = _arrivals.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _arrivals[key] = buf
+        return buf
 
 
 def _window(window) -> int:
@@ -132,11 +159,13 @@ def decode_query_attention(q, k_cache, v_cache, lengths, *,
     B, Lq, KV, G, dk = q.shape
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, Lq, KV, G, dv), dtype=q.dtype, device=q.device)
-    pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device)
+    pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device, SPLIT)
+    arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_query_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
-        B, Lq, KV, G, dk, dv, S, _window(window), dk ** -0.5,
+        arrivals.data_ptr(), B, Lq, KV, G, dk, dv, S, _window(window),
+        dk ** -0.5,
         _DTYPES[q.dtype], _stream(q.device))
     build.check(err, "decode_query_attention")
     _count(decode_query_attention)
@@ -152,11 +181,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     B, KV, G, dk = q.shape
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, KV, G, dv), dtype=q.dtype, device=q.device)
-    pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device)
+    pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device, SPLIT)
+    arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
-        B, KV, G, dk, dv, S, _window(window), dk ** -0.5,
+        arrivals.data_ptr(), B, KV, G, dk, dv, S, _window(window),
+        dk ** -0.5,
         _DTYPES[q.dtype], _stream(q.device))
     build.check(err, "decode_attention")
     _count(decode_attention)

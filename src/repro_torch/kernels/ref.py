@@ -6,9 +6,10 @@ scores are the finite NEG_INF, so a row that sees no position gets the
 mean of V over all S positions, as in the JAX package. The
 wrappers in `kernels/ops.py` use them for tensors on the CPU, and
 `chip_smoke.py` holds each hand kernel against them on the card.
-`prefill_attention_tc_twin` is no plain version: it repeats the blocked
-algorithm of kernel D's tensor-core body, for the tests and
-`chip_smoke.py`, and no wrapper calls it.
+The `*_twin` functions are no plain versions: each repeats the blocked
+algorithm of one hand kernel (A / B's float32 / bfloat16 body, and both
+bodies of D), for the tests and `chip_smoke.py`, and no wrapper calls
+them.
 """
 from __future__ import annotations
 
@@ -57,6 +58,118 @@ def decode_query_attention_ref(q, k_cache, v_cache, lengths, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("blhgs,bshd->blhgd", p, v_cache.float())
     return out.to(q.dtype)
+
+
+DECODE_SPLIT, DECODE_SUB = 128, 16  # kernel A's split, and its warps' share
+
+
+def _decode_span(n: int, Lq: int, S: int, window: int):
+    """The positions some query row of an item of length n can see:
+    [lo, hi], empty when lo > hi."""
+    hi = min(n - 1, S - 1)
+    lo = hi + 1 if window < 1 else max(0, n - Lq - window + 1)
+    return lo, hi
+
+
+def decode_uses_mma(dtype, dk: int, dv: int) -> bool:
+    """Whether kernel A / B's float32 / bfloat16 body runs these inputs on
+    the tensor cores: bfloat16 with dk and dv multiples of 16, at most
+    128 (the rule of `csrc/decode_attention.cu`, for contiguous inputs)."""
+    return (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0
+            and dk <= 128 and dv <= 128)
+
+
+def _merge(m, l, acc):
+    """Partials (m, l, acc) along dim 0 merged in order, as the kernel
+    does: M = max m; l, acc = sums of l * exp(m - M), acc * exp(m - M);
+    rows whose every m is -inf get (-inf, 0, 0)."""
+    M = m.amax(0)
+    dead = M == -torch.inf
+    f = torch.exp(m - torch.where(dead, 0.0, M))
+    f = torch.where(dead.expand_as(f), 0.0, f)
+    lo, ac = torch.zeros_like(M), torch.zeros_like(acc[0])
+    for i in range(m.shape[0]):
+        lo = lo + l[i] * f[i]
+        ac = ac + acc[i] * f[i][..., None]
+    return M, lo, ac
+
+
+def decode_query_attention_twin(q, k_cache, v_cache, lengths, *,
+                                window: int = GLOBAL):
+    """Eager twin of the float32 / bfloat16 body of kernels A and B
+    (`csrc/decode_attention.cu`): its blocked algorithm, for the tests and
+    `chip_smoke.py` (never the main path).
+
+    Per item, the splits of DECODE_SPLIT positions that hold a visible
+    position, in order; per split, eight warps of DECODE_SUB positions,
+    each with its own softmax (m, l, acc) over positions outside the
+    item's visible span zero-filled and masked to -inf; the warps merged
+    in order, then the splits in order; rows that see nothing get the
+    mean of V over all S positions. Sums in float32. Where the kernel runs
+    on the tensor cores (`decode_uses_mma`), the scores are (q . k) *
+    dk^-0.5 and P goes to P V as a bf16 high part plus a bf16 low part;
+    else they are (q * dk^-0.5) . k and P stays float32. Each item runs on
+    its own with shapes fixed by the split, so its output does not depend
+    on the batch or its padding."""
+    B, Lq, KV, G, dk = q.shape
+    S, dv = k_cache.shape[1], v_cache.shape[3]
+    R, dev = Lq * G, q.device
+    window = min(int(window), GLOBAL)
+    n_split = -(-S // DECODE_SPLIT)
+    pad = n_split * DECODE_SPLIT - S
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
+    mma = decode_uses_mma(q.dtype, dk, dv)
+    scale = dk ** -0.5
+    qf = (q.float() * (1.0 if mma else scale)).permute(0, 2, 1, 3, 4) \
+        .reshape(B, KV, R, dk)
+    out = torch.empty((B, KV, R, dv), device=dev)
+    w_pos = torch.arange(DECODE_SPLIT, device=dev).reshape(-1, DECODE_SUB)
+    for b in range(B):
+        n = int(lengths[b])
+        lo, hi = _decode_span(n, Lq, S, window)
+        mean = v_cache[b].float().mean(0)[:, None, :].expand(KV, R, dv)
+        if lo > hi:
+            out[b] = mean
+            continue
+        q_pos = (n - Lq + torch.arange(R, device=dev) // G)[:, None]
+        parts = []
+        for s in range(lo // DECODE_SPLIT, hi // DECODE_SPLIT + 1):
+            pos = s * DECODE_SPLIT + w_pos                 # (warps, SUB)
+            inside = ((pos >= lo) & (pos <= hi))[..., None, None]
+            kt = torch.where(inside, kf[b, pos], 0.0)      # (w, SUB, KV, dk)
+            vt = torch.where(inside, vf[b, pos], 0.0)
+            sc = torch.einsum("hrd,wphd->whrp", qf[b], kt)
+            if mma:
+                sc = sc * scale
+            live = ((pos[:, None, :] <= hi) & (pos[:, None, :] <= q_pos)
+                    & (q_pos - pos[:, None, :] < window))[:, None]
+            x = torch.where(live, sc, -torch.inf)          # (w, KV, R, SUB)
+            m = x.amax(-1)
+            e = torch.where((m == -torch.inf)[..., None], 0.0,
+                            torch.exp(x - m[..., None]))
+            if mma:
+                p_hi = e.to(torch.bfloat16).float()
+                p_lo = (e - p_hi).to(torch.bfloat16).float()
+                acc = torch.einsum("whrp,wphd->whrd", p_hi, vt) + \
+                    torch.einsum("whrp,wphd->whrd", p_lo, vt)
+            else:
+                acc = torch.einsum("whrp,wphd->whrd", e, vt)
+            parts.append(_merge(m, e.sum(-1), acc))
+        m, l, acc = (torch.stack(t) for t in zip(*parts))
+        M, l, acc = _merge(m, l, acc)
+        out[b] = torch.where((M == -torch.inf)[..., None], mean,
+                             acc / l.clamp(min=1e-30)[..., None])
+    return out.reshape(B, KV, Lq, G, dv).permute(0, 2, 1, 3, 4) \
+        .to(q.dtype).contiguous()
+
+
+def decode_attention_twin(q, k_cache, v_cache, lengths, *,
+                          window: int = GLOBAL):
+    """Kernel B's twin: kernel A's at Lq = 1; (B, KV, G, dk) ->
+    (B, KV, G, dv)."""
+    return decode_query_attention_twin(q[:, None], k_cache, v_cache, lengths,
+                                       window=window)[:, 0]
 
 
 def dequantize(x, scale):
@@ -167,6 +280,70 @@ def prefill_attention_tc_twin(q, k, v, *, window: int = GLOBAL,
             out[b, q0:q_last + 1] = (acc[:n] / torch.clamp(
                 l[:n], min=1e-30)[..., None]).to(q.dtype)
     return out
+
+
+FMA_ROWS, FMA_BK = 16, 32     # the FMA body's tile: rows, keys
+
+
+def prefill_attention_fma_twin(q, k, v, *, window: int = GLOBAL,
+                               causal: bool = True):
+    """Eager twin of the FMA body of kernel D (`csrc/prefill_attention.cu`):
+    its blocked algorithm, for the tests and `chip_smoke.py` (never the
+    main path).
+
+    The query rows of an (item, KV head), taken in order of position * G +
+    head, in tiles of 16; per tile, key tiles of 32 positions in
+    increasing order from the first the window reaches (from the tile's
+    first position) to the tile of its last position's diagonal (to S when
+    not causal), zero-filled past S. float32 scores of q * dk^-0.5 and k,
+    masked to -1e30; the online softmax with m from -1e30 and exp; out =
+    acc / max(l, 1e-30) in q's dtype. Each item runs on its own with
+    shapes fixed by the tiles, so its rows do not depend on the batch."""
+    B, S, KV, G, dk = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    n_rows = S * G
+    n_tiles = -(-n_rows // FMA_ROWS)
+    pad = -(-S // FMA_BK) * FMA_BK - S
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    qf = (q.float() * dk ** -0.5).permute(0, 2, 1, 3, 4).reshape(B, KV,
+                                                                 n_rows, dk)
+    qf = torch.nn.functional.pad(qf, (0, 0, 0, n_tiles * FMA_ROWS - n_rows))
+    out = torch.empty((B, KV, n_tiles * FMA_ROWS, dv), device=dev)
+    kpos0 = torch.arange(FMA_BK, device=dev)
+    for tile in range(n_tiles):
+        f0 = tile * FMA_ROWS
+        q_first, q_last = f0 // G, min((f0 + FMA_ROWS - 1) // G, S - 1)
+        k_end = q_last + 1 if causal else S
+        t_first = max(0, q_first - window + 1) // FMA_BK
+        qpos = (f0 + torch.arange(FMA_ROWS, device=dev)) // G
+        for b in range(B):
+            qt = qf[b, :, f0:f0 + FMA_ROWS]                  # (KV, 16, dk)
+            m = torch.full((KV, FMA_ROWS), NEG_INF, device=dev)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((KV, FMA_ROWS, dv), device=dev)
+            for t in range(t_first, (k_end - 1) // FMA_BK + 1):
+                p0 = t * FMA_BK
+                kt, vt = kf[b, p0:p0 + FMA_BK], vf[b, p0:p0 + FMA_BK]
+                s = torch.einsum("hrd,khd->hrk", qt, kt)
+                kpos = p0 + kpos0
+                live = (kpos[None, :] < S) & \
+                    ((qpos[:, None] - kpos[None, :]) < window)
+                if causal:
+                    live = live & (kpos[None, :] <= qpos[:, None])
+                s = torch.where(live, s, torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("hrk,khd->hrd",
+                                                            p, vt)
+                m = m_new
+            out[b, :, f0:f0 + FMA_ROWS] = acc / torch.clamp(
+                l, min=1e-30)[..., None]
+    out = out[:, :, :n_rows].reshape(B, KV, S, G, dv).permute(0, 2, 1, 3, 4)
+    return out.to(q.dtype).contiguous()
 
 
 def expected_attention_scores_ref(k_cache, mu, sig2):

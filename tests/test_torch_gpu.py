@@ -13,7 +13,10 @@ the plain versions, which dequantise up front. The full-width
 stretto-llama-8b prefill (32 layers, bfloat16) holds its caches and
 logits, prefill kernel against the blocked attention, to 5 % of their
 largest magnitude: bfloat16 rounding differences carried through 32
-layers of random weights.
+layers of random weights. The redesigned kernels (A / B's float32 /
+bfloat16 body, D's FMA body) are also held to their CPU twins' blocked
+algorithms run on the card, at the same tolerances: the two differ only in
+the order of float32 sums.
 """
 import pytest
 import torch
@@ -70,6 +73,65 @@ def test_decode_query_attention_matches_plain(gpu, B, Lq, KV, G, dk, dv, S,
                                rtol=0)
 
 
+@pytest.mark.parametrize("B,Lq,KV,G,dk,dv,S,dtype,window", CASES + [
+    (4, 3, 8, 4, 128, 128, 1152, torch.bfloat16, GLOBAL),    # R = 12 at 8B
+    (4, 3, 8, 4, 128, 128, 1152, torch.float32, 300)])
+def test_decode_query_attention_matches_twin(gpu, B, Lq, KV, G, dk, dv, S,
+                                             dtype, window):
+    q, k, v, lengths = _inputs(S + dk + 2, B, Lq, KV, G, dk, dv, S, dtype)
+    got = DA.decode_query_attention(q, k, v, lengths, window=window)
+    twin = ref.decode_query_attention_twin(q, k, v, lengths, window=window)
+    want = ref.decode_query_attention_ref(q, k, v, lengths, window=window)
+    torch.testing.assert_close(got.float(), twin.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Lq,window", [(1, GLOBAL), (3, GLOBAL), (3, 70)])
+def test_decode_split_boundaries_match_plain(gpu, dtype, Lq, window):
+    """At the 8B widths, lengths one below, at and one above each multiple
+    of the split size (64) up to S 1152: the last visible position ends a
+    split or opens the next one. A and, at Lq 1, B."""
+    n = [s * DA.SPLIT + o for s in range(1, 1152 // DA.SPLIT)
+         for o in (-1, 0, 1)]
+    B = len(n)
+    q, k, v, _ = _inputs(Lq + 3, B, Lq, 8, 4, 128, 128, 1152, dtype)
+    lengths = torch.tensor(n, dtype=torch.int32, device="cuda")
+    got = DA.decode_query_attention(q, k, v, lengths, window=window)
+    want = ref.decode_query_attention_ref(q, k, v, lengths, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    if Lq == 1:
+        got1 = DA.decode_attention(q[:, 0], k, v, lengths, window=window)
+        want1 = ref.decode_attention_ref(q[:, 0], k, v, lengths,
+                                         window=window)
+        torch.testing.assert_close(got1.float(), want1.float(),
+                                   atol=TOL[dtype], rtol=0)
+
+
+def test_decode_repeated_calls_reuse_the_arrival_counters(gpu):
+    """Each launch leaves its arrival counters at zero, so calls in a row
+    on the same scratch (and on another stream, with its own) give the
+    same bits; a counter left behind would skip or repeat a merge."""
+    q, k, v, lengths = _inputs(9, 6, 1, 8, 4, 128, 128, 1152, torch.bfloat16)
+    first = DA.decode_query_attention(q, k, v, lengths)
+    again = [DA.decode_query_attention(q, k, v, lengths) for _ in range(3)]
+    b1 = DA.decode_attention(q[:, 0], k, v, lengths)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = DA.decode_query_attention(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, a) for a in again)
+    assert torch.equal(first, other)
+    assert torch.equal(first[:, 0], b1)
+    for buf in DA._arrivals.values():
+        assert int(buf.abs().sum()) == 0
+
+
 @pytest.mark.parametrize("B,Lq,KV,G,dk,dv,S,dtype,window",
                          [c for c in CASES if c[1] == 1])
 def test_decode_attention_matches_plain(gpu, B, Lq, KV, G, dk, dv, S, dtype,
@@ -82,16 +144,27 @@ def test_decode_attention_matches_plain(gpu, B, Lq, KV, G, dk, dv, S, dtype,
                                rtol=0)
 
 
-def test_decode_output_does_not_depend_on_batch_or_padding(gpu):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [63, 64, 65, 128, 200])
+def test_decode_output_does_not_depend_on_batch_or_padding(gpu, dtype, n):
     """An item's output is bit-identical alone and inside a larger batch
-    padded further: the splits depend on S alone and empty ones add
-    exact zeros."""
-    q, k, v, lengths = _inputs(3, 3, 2, 8, 4, 128, 128, 384, torch.bfloat16)
-    lengths[1] = 200
+    padded past two more splits (S 256 -> 384): the splits depend on S
+    alone and splits the item cannot see are never merged. The twin, run
+    on the card, is batch-invariant too."""
+    q, k, v, lengths = _inputs(3, 3, 2, 8, 4, 128, 128, 384, dtype)
+    lengths[1] = n
     alone = DA.decode_query_attention(q[1:2], k[1:2, :256], v[1:2, :256],
                                       lengths[1:2])
     batched = DA.decode_query_attention(q, k, v, lengths)
     assert torch.equal(alone[0], batched[1])
+    one = DA.decode_attention(q[1:2, 0], k[1:2, :256], v[1:2, :256],
+                              lengths[1:2])
+    many = DA.decode_attention(q[:, 0], k, v, lengths)
+    assert torch.equal(one[0], many[1])
+    twin = ref.decode_query_attention_twin(q, k, v, lengths)
+    twin1 = ref.decode_query_attention_twin(
+        q[1:2], k[1:2, :256], v[1:2, :256], lengths[1:2])
+    assert torch.equal(twin1[0], twin[1])
 
 
 def _quantized(k, v):
@@ -262,7 +335,9 @@ PREFILL_CASES = [
     (2, 200, 2, 2, 128, 128, torch.bfloat16, GLOBAL, False, "tc"),
     (2, 200, 2, 3, 24, 40, torch.float32, GLOBAL, False, "fma"),
     (2, 130, 2, 2, 32, 48, torch.bfloat16, 17, True, "tc"),
-    (2, 130, 2, 2, 24, 24, torch.bfloat16, GLOBAL, True, "fma")]
+    (2, 130, 2, 2, 24, 24, torch.bfloat16, GLOBAL, True, "fma"),
+    (2, 512, 8, 4, 128, 128, torch.float32, 100, True, "fma"),
+    (3, 77, 2, 5, 20, 12, torch.float32, 9, True, "fma")]
 
 
 def _prefill_inputs(seed, B, S, KV, G, dk, dv, dtype):
@@ -278,8 +353,8 @@ def _prefill_inputs(seed, B, S, KV, G, dk, dv, dtype):
 def test_prefill_attention_matches_plain(gpu, B, S, KV, G, dk, dv, dtype,
                                          window, causal, body):
     """Against the plain version and the blocked `flash_attention` at the
-    dtype's tolerance; the tensor-core body also against its CPU twin's
-    algorithm run on the card (same tolerance: the two differ only in the
+    dtype's tolerance, and against the CPU twin of the body that ran (its
+    algorithm run on the card; same tolerance: the two differ only in the
     order of float32 sums)."""
     from repro_torch.models.layers import flash_attention
     q, k, v = _prefill_inputs(S + dk, B, S, KV, G, dk, dv, dtype)
@@ -296,11 +371,11 @@ def test_prefill_attention_matches_plain(gpu, B, S, KV, G, dk, dv, dtype,
                               causal=causal).reshape(got.shape)
     torch.testing.assert_close(got.float(), blocked.float(),
                                atol=TOL[dtype], rtol=0)
-    if body == "tc":
-        twin = ref.prefill_attention_tc_twin(q, k, v, window=window,
-                                             causal=causal)
-        torch.testing.assert_close(got.float(), twin.float(),
-                                   atol=TOL[dtype], rtol=0)
+    twin_fn = (ref.prefill_attention_tc_twin if body == "tc"
+               else ref.prefill_attention_fma_twin)
+    twin = twin_fn(q, k, v, window=window, causal=causal)
+    torch.testing.assert_close(got.float(), twin.float(), atol=TOL[dtype],
+                               rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -453,3 +453,150 @@ def test_prefill_launch_counts_per_body_reset():
     counts = ops.launch_counts()
     assert counts["prefill_attention"] == 0
     assert counts["prefill_attention_by_body"] == {"tc": 0, "fma": 0}
+
+
+# Kernel A / B's float32 / bfloat16 body: its CPU twin
+# (kernels/ref.decode_query_attention_twin) walks the kernel's splits of 64
+# positions and its warps' sub-tiles of 16, each with its own softmax, and
+# merges them in order. Held to the JAX oracle over GRID and to the Pallas
+# kernel (interpret mode), at the tolerances above: the twin differs from
+# both only in the order of float32 sums.
+@pytest.mark.parametrize("B,lq,G,dk,window,dt", GRID)
+def test_query_attention_twin_matches_jax_oracle(B, lq, G, dk, window, dt):
+    S, KV = 256, 2
+    arrs = _inputs(hash((B, lq, G, dk, window)) % 1000, B, S, KV, G, dk, dk,
+                   lq)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(arrs, dt)
+    want = jops.decode_query_attention(jq, jk, jv, jl, window=window,
+                                       backend="ref")
+    got = ref.decode_query_attention_twin(tq, tk, tv, tl, window=window)
+    assert got.dtype == tq.dtype and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=DTYPES[dt][2],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("G,dk,window,dt",
+                         list(itertools.product((1, 4), (16, 24, 128),
+                                                (8, GLOBAL), ("f32", "bf16"))))
+def test_decode_attention_twin_matches_jax_oracle(G, dk, window, dt):
+    B, S, KV = 3, 256, 2
+    arrs = _inputs(hash((G, dk, window)) % 1000, B, S, KV, G, dk, dk, None)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(arrs, dt)
+    want = jops.decode_attention(jq, jk, jv, jl, window=window,
+                                 backend="ref")
+    got = ref.decode_attention_twin(tq, tk, tv, tl, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=DTYPES[dt][2],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("lq,G,dk,window", [(1, 1, 16, GLOBAL),
+                                            (3, 1, 24, 8),
+                                            (3, 4, 128, GLOBAL),
+                                            (1, 4, 24, 8)])
+def test_query_attention_twin_matches_pallas_interpret(lq, G, dk, window):
+    arrs = _inputs(7 + dk, 2, 256, 2, G, dk, dk, lq)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(arrs, "f32")
+    want = jops.decode_query_attention(jq, jk, jv, jl, window=window,
+                                       backend="interpret")
+    got = ref.decode_query_attention_twin(tq, tk, tv, tl, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("split", [1, 2, 3])
+@pytest.mark.parametrize("lq,window", [(1, GLOBAL), (3, GLOBAL), (3, 40)])
+def test_query_attention_twin_at_split_boundaries(split, lq, window):
+    """Lengths one below, at and one above a multiple of the split size
+    (64): the last visible position is the last of a split, or the first
+    of the next."""
+    from repro_torch.kernels.ref import DECODE_SPLIT
+    arrs = _inputs(split * 10 + lq, 3, 256, 2, 4, 32, 32, lq)
+    n = split * DECODE_SPLIT
+    arrs[3][:] = [n - 1, n, n + 1]
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both(arrs, "f32")
+    want = jops.decode_query_attention(jq, jk, jv, jl, window=window,
+                                       backend="ref")
+    got = ref.decode_query_attention_twin(tq, tk, tv, tl, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("window", [GLOBAL, 0])
+def test_query_attention_twin_rows_that_see_no_position(window):
+    """lengths < Lq, an empty item, and a window of 0: the twin gives such
+    rows the mean of V over all S positions, as the Pallas kernel
+    (interpret mode) does."""
+    rng = np.random.default_rng(17)
+    B, Lq, S, KV, G, dk = 4, 3, 256, 2, 2, 16
+    q = rng.normal(size=(B, Lq, KV, G, dk)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, dk)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, dk)).astype(np.float32)
+    lengths = np.array([S, 1, 2, 0], np.int32)
+    want = jops.decode_query_attention(
+        *(jnp.asarray(a) for a in (q, k, v, lengths)), window=window,
+        backend="interpret")
+    got = ref.decode_query_attention_twin(
+        *(torch.from_numpy(a) for a in (q, k, v, lengths)), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 200])
+@pytest.mark.parametrize("lq,window", [(1, GLOBAL), (3, 50)])
+def test_query_attention_twin_is_batch_invariant(n, lq, window):
+    """An item's output is bit-identical alone (S 256) and inside a larger
+    batch padded past two more splits (S 384): the splits depend on S
+    alone and splits the item cannot see are never merged."""
+    arrs = _inputs(n + lq, 3, 384, 2, 4, 32, 32, lq)
+    arrs[3][1] = n
+    t = [torch.from_numpy(a) for a in arrs]
+    batched = ref.decode_query_attention_twin(*t, window=window)
+    alone = ref.decode_query_attention_twin(t[0][1:2], t[1][1:2, :256],
+                                            t[2][1:2, :256], t[3][1:2],
+                                            window=window)
+    # query rows before position 0 see nothing and take the mean over all
+    # S positions, which depends on S (in the plain version too)
+    first = max(0, lq - n)
+    assert torch.equal(alone[0, first:], batched[1, first:])
+
+
+# Kernel D's FMA body: its CPU twin (kernels/ref.prefill_attention_fma_twin)
+# walks the body's row tiles of 16 (position x head) rows and key tiles of
+# 32, online softmax in float32 with exp. Held to the JAX oracle and the
+# Pallas kernel (interpret mode) over PREFILL_CASES at PREFILL_TOL.
+@pytest.mark.parametrize("B,S,KV,G,dk,dv,bq,bk,window,causal,dt",
+                         PREFILL_CASES)
+def test_prefill_fma_twin_matches_pallas_and_oracle(B, S, KV, G, dk, dv, bq,
+                                                    bk, window, causal, dt):
+    from repro.kernels import ref as jref
+    from repro.kernels.prefill_attention import prefill_attention as jpa
+    rng = np.random.default_rng(S + dk + dv)
+    q = rng.normal(size=(B, S, KV, G, dk)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, dk)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, dv)).astype(np.float32)
+    jdt, tdt, _ = DTYPES[dt]
+    jargs = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    got = ref.prefill_attention_fma_twin(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), window=window,
+        causal=causal)
+    assert got.dtype == tdt and got.shape == (B, S, KV, G, dv)
+    pallas = jpa(*jargs, window=window, causal=causal, block_q=bq,
+                 block_k=bk, interpret=True)
+    oracle = jref.prefill_attention_ref(*jargs, window=window,
+                                        causal=causal)
+    tol = PREFILL_TOL[dt]
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=tol, rtol=0)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("G,window", [(4, GLOBAL), (4, 100), (3, GLOBAL),
+                                      (1, 17), (5, 33)])
+def test_prefill_fma_twin_is_batch_invariant(G, window):
+    """An item's rows are bit-identical alone and inside a larger batch
+    padded further: row tiles sit at fixed multiples of 16 rows, and keys
+    past a causal row add exact zeros."""
+    rng = np.random.default_rng(G * 7 + window % 89)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((3, 200, 2, G, 24), (3, 200, 2, 24),
+                         (3, 200, 2, 24)))
+    batched = ref.prefill_attention_fma_twin(q, k, v, window=window)
+    alone = ref.prefill_attention_fma_twin(q[1:2, :137], k[1:2, :137],
+                                           v[1:2, :137], window=window)
+    assert torch.equal(alone[0], batched[1, :137])
