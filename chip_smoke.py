@@ -11,8 +11,8 @@ Phases, one JSON line each:
            max abs error within the stated tolerance, and its time beside
            the plain version's, the bound and (bf16/f32 attention) one SDPA
            call, under a write and a read L2 flush; the decode kernels in
-           float32/bfloat16 (also against their CPU twin's algorithm) and
-           over int8 K/V (kernel_edges: rows that see no cache position,
+           float32/bfloat16 and over int8 K/V, also against their CPU
+           twin's algorithm (kernel_edges: rows that see no cache position,
            lengths at split boundaries, calls in a row on the same arrival
            counters, and an item's output alone vs in a larger,
            further-padded batch); the prefill
@@ -21,7 +21,9 @@ Phases, one JSON line each:
            both bodies (tensor cores for bf16 at head dims that are
            multiples of 16, FMAs otherwise); its 8B rows also against the
            tensor-core body's CPU twin, timed beside it and the FMA body;
-           the FMA body's rows against its own twin
+           the FMA body's rows against its own twin; the Expected-Attention
+           kernel (C) at the prefill chunks' shapes (every layer and item
+           in one launch), against its plain version and its twin
   planted  the planted sm/lg world (200 items) under a hand-written
            cascade plan through KVCacheBackend + run_plan; inline vs
            threads:2 bit-identical; the same plan on the CPU equal outside
@@ -56,7 +58,9 @@ Phases, one JSON line each:
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
-ones (float32); any other body on a path fails the run.
+ones (float32); any other body on a path fails the run. Each build scores
+every prefill chunk with one launch of C: a path whose C launches differ
+from the chunks its engine prefilled fails.
 Then the kernels line, the nvidia-smi line and, last, the result line.
 
 Launch counts: every count is set to 0 just before a path is driven and
@@ -246,13 +250,14 @@ def _decode_call(name, q, k, v, scales):
     return qq, run(kern), run(plain)
 
 
-def _decode_twin(name, q, k, v, lengths, window):
-    """The CPU twin of the float32 / bfloat16 decode body, run on the card
-    (A's for the query kernel, B's for the single-token one)."""
+def _decode_twin(name, q, k, v, lengths, window, scales=()):
+    """The CPU twin of the decode body, run on the card (A's for the query
+    kernel, B's for the single-token one; over int8 K/V with `scales`)."""
     from repro_torch.kernels import ref
     twin = (ref.decode_query_attention_twin if name.startswith("decode_query")
             else ref.decode_attention_twin)
-    return twin(q, k, v, lengths, window=window)
+    ks, vs = scales if scales else (None, None)
+    return twin(q, k, v, lengths, window=window, k_scale=ks, v_scale=vs)
 
 
 def phase_kernels(torch, flush):
@@ -291,12 +296,11 @@ def phase_kernels(torch, flush):
                            dk=dk, S=S, dtype=str(dt)[6:], window=window,
                            kv_dtype="int8" if quant else str(dt)[6:],
                            max_abs_err=err, tol=tol[dt])
-                errs = [err]
-                if not quant:
-                    twin = _decode_twin(name, qq, kk, vv, lengths, window)
-                    row["max_abs_err_vs_twin"] = float(
-                        (got.float() - twin.float()).abs().max())
-                    errs.append(row["max_abs_err_vs_twin"])
+                twin = _decode_twin(name, qq, kk, vv, lengths, window,
+                                    (ks, vs) if quant else ())
+                row["max_abs_err_vs_twin"] = float(
+                    (got.float() - twin.float()).abs().max())
+                errs = [err, row["max_abs_err_vs_twin"]]
                 row["ok"] = bool(max(errs) <= tol[dt]
                                  and all(math.isfinite(e) for e in errs))
                 if Lq == 1 and not label.endswith("window"):
@@ -338,41 +342,84 @@ def phase_kernels(torch, flush):
                                   f" vs the plain version and the twin")
     _decode_edge_cases(torch, gen, tol)
     rows["prefill_attention"] = _prefill_cases(torch, gen, tol, flush)
-    ea_cases = [("llama8b", 1, 1024, 8, 4, 128, bf16, True),
-                ("planted-sm", 1, 160, 2, 1, 16, f32, False),
-                ("planted-lg", 1, 160, 4, 1, 24, f32, False)]
-    for label, B, S, KV, G, dk, dt, main in ea_cases:
-        k = torch.randn((B, S, KV, dk), generator=gen, device="cuda").to(dt)
-        mu = torch.randn((KV, G, dk), generator=gen, device="cuda")
-        sig2 = torch.rand((KV, G, dk), generator=gen, device="cuda")
-        got = EA.expected_attention_scores(k, mu, sig2)
-        want = ref.expected_attention_scores_ref(k, mu, sig2)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        etol = 2e-5 * max(1.0, scale)       # float32 sums of dk terms
-        row = dict(kernel="expected_attention_scores", shape=label, B=B, S=S,
-                   KV=KV, G=G, dk=dk, dtype=str(dt)[6:], max_abs_err=err,
-                   tol=etol, ok=bool(err <= etol and math.isfinite(err)),
-                   main_path_shape=main)
-        def ea():
+    rows["expected_attention_scores"] = _ea_cases(torch, gen, flush)
+    return rows
+
+
+def _ea_cases(torch, gen, flush):
+    """Kernel C at the prefill chunks' shapes, every layer and item in one
+    launch, stats in the model's dtype: the 8B Session chunk (L 32, B 4, S
+    512, the main path) and the hand plan's (S 1024), the same at B 16, one
+    item alone, the planted chunks (dk 16: lanes of 16-byte vectors; dk
+    24: the row kernel), and one layer without the layer axis (the shape
+    of the kernel's earlier per-layer calls). Against the plain version
+    and C's CPU twin at 2e-5 x max(1, |score|); timed beside the plain
+    version under a write and a read L2 flush."""
+    from repro_torch.kernels import expected_attention as EA
+    from repro_torch.kernels import ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, L or None (no layer axis), B, S, KV, G, dk, dtype, main path)
+    cases = [("llama8b-session-chunk", 32, 4, 512, 8, 4, 128, bf16, True),
+             ("llama8b-hand-chunk", 32, 4, 1024, 8, 4, 128, bf16, False),
+             ("llama8b-L32-B16-S512", 32, 16, 512, 8, 4, 128, bf16, False),
+             ("llama8b-L32-B16-S1024", 32, 16, 1024, 8, 4, 128, bf16, False),
+             ("llama8b-item-S1024", 32, 1, 1024, 8, 4, 128, bf16, False),
+             ("llama8b-one-layer", None, 1, 1024, 8, 4, 128, bf16, False),
+             ("planted-sm-chunk", 2, 16, 160, 2, 1, 16, f32, False),
+             ("planted-lg-chunk", 2, 16, 160, 4, 1, 24, f32, False)]
+    out = []
+    for label, L, B, S, KV, G, dk, dt, main in cases:
+        lead = (L,) if L else ()
+        k = torch.randn(lead + (B, S, KV, dk), generator=gen,
+                        device="cuda").to(dt)
+        mu = torch.randn(lead + (KV, G, dk), generator=gen,
+                         device="cuda").to(dt)
+        sig2 = torch.rand(lead + (KV, G, dk), generator=gen,
+                          device="cuda").to(dt)
+
+        def kern():
             return EA.expected_attention_scores(k, mu, sig2)
-        row["kernel_ms"] = time_ms(torch, ea, flush)
-        row["kernel_ms_read"] = time_ms(torch, ea, flush, mode="read")
-        row["plain_ms"] = time_ms(torch, lambda: ref
-                                  .expected_attention_scores_ref(k, mu, sig2),
-                                  flush)
-        nbytes = k.numel() * k.element_size() + 2 * mu.numel() * 4 \
-            + B * S * KV * 4
-        # mu and sig2 are float32: the float32 rate
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, B * S * KV * G * dk * 4, torch.float32)
+
+        def plain():
+            return ref.expected_attention_scores_ref(k, mu, sig2)
+        before = EA.expected_attention_scores.launches
+        got = kern()
+        launches = EA.expected_attention_scores.launches - before
+        want = plain()
+        twin = ref.expected_attention_scores_twin(k, mu, sig2)
+        torch.cuda.synchronize()
+        mag = want.abs().clamp(min=1.0)
+        rel = float(((got - want).abs() / mag).max())
+        rel_twin = float(((got - twin).abs() / mag).max())
+        row = dict(kernel="expected_attention_scores", shape=label,
+                   L=L or 1, B=B, S=S, KV=KV, G=G, dk=dk, dtype=str(dt)[6:],
+                   max_abs_err=float((got - want).abs().max()),
+                   max_abs_err_vs_twin=float((got - twin).abs().max()),
+                   max_rel_err=rel, max_rel_err_vs_twin=rel_twin,
+                   tol="2e-5 x max(1, |score|)", launches=launches,
+                   ok=bool(max(rel, rel_twin) <= 2e-5 and launches == 1
+                           and math.isfinite(rel + rel_twin)),
+                   main_path_shape=main)
+        del want, twin
+        row["kernel_ms"] = time_ms(torch, kern, flush)
+        row["kernel_ms_read"] = time_ms(torch, kern, flush, mode="read")
+        row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
+        nbytes = (k.numel() * k.element_size()
+                  + 2 * mu.numel() * mu.element_size() + got.numel() * 4)
+        # the function as the TPU kernel computes it: two dot products per
+        # query head, 4 G flops per K element, at the float32 rate
+        row["bound_ms"], row["bound_by"] = bound(nbytes, k.numel() * G * 4,
+                                                 torch.float32)
         row["library_ms"] = row["library_ms_read"] = None
-        rows["expected_attention_scores"].append(row)
+        out.append(row)
         emit("kernel", **row)
         if not row["ok"]:
-            die("kernel", f"expected_attention_scores at {label}: error {err}")
-    return rows
+            die("kernel", f"expected_attention_scores at {label}: relative "
+                          f"errors {rel} / {rel_twin} vs the plain version / "
+                          f"the twin, {launches} launches per call")
+        del k, mu, sig2, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def _prefill_fma(PA, q, k, v, window, causal):
@@ -558,9 +605,8 @@ def _decode_edge_cases(torch, gen, tol):
             torch.cuda.synchronize()
             same = bool(torch.equal(kern(lens)[0], kern1(lens[:1])[0]))
             err = max(errs)
-            extra = {}
-            if not quant:
-                extra = _decode_split_edges(torch, name, q, k, v, dt)
+            extra = _decode_split_edges(torch, name, q, kk, vv, dt,
+                                        (ks, vs) if quant else ())
             ok = (err <= tol[dt] and math.isfinite(err) and same
                   and all(extra.get(key, True) for key in
                           ("split_boundaries_ok", "repeat_equal")))
@@ -572,10 +618,10 @@ def _decode_edge_cases(torch, gen, tol):
                               f"{err}, batch invariance {same} or {extra}")
 
 
-def _decode_split_edges(torch, name, q, k, v, dt):
-    """Lengths one below, at and one above each multiple of the float32 /
-    bfloat16 body's split size, against the plain version; and three
-    calls in a row on the same arrival counters, bit-identical."""
+def _decode_split_edges(torch, name, q, k, v, dt, scales=()):
+    """Lengths one below, at and one above each multiple of the decode
+    body's split size, against the plain version; and three calls in a row
+    on the same arrival counters, bit-identical."""
     from repro_torch.kernels import decode_attention as DA
     tol = 2e-5 if dt == torch.float32 else 2e-2
     S = k.shape[1]
@@ -583,7 +629,8 @@ def _decode_split_edges(torch, name, q, k, v, dt):
     lengths = torch.tensor(n, dtype=torch.int32, device="cuda")
     idx = torch.arange(len(n), device="cuda") % q.shape[0]
     qq, kk, vv = q[idx], k[idx], v[idx]
-    _, kern, plain = _decode_call(name, qq, kk, vv, ())
+    _, kern, plain = _decode_call(name, qq, kk, vv,
+                                  tuple(x[idx] for x in scales))
     got = kern(lengths)
     err = float((got.float() - plain(lengths).float()).abs().max())
     again = [kern(lengths) for _ in range(2)]
@@ -800,6 +847,7 @@ def phase_llama8b(torch):
                if counts[k] <= 0]
     if missing:
         die("llama8b", f"kernels not launched on this path: {missing}")
+    _check_chunks("llama8b", counts, eng)
     if not np.all(np.isfinite(scan_lo)):
         die("llama8b", "non-finite scan-path scores")
     flush_items = sum(s.n_tuples for s in result.stage_stats)
@@ -907,7 +955,15 @@ def _drive_session(torch, sess, corpora, frame):
     return report, result, metrics, counts, times
 
 
-def _check_session(phase, report, result, metrics, counts, n_items):
+def _check_chunks(phase, counts, eng):
+    """One launch of C per prefill chunk the path's engine built."""
+    if counts["expected_attention_scores"] != eng.prefill_chunks:
+        die(phase, f"{counts['expected_attention_scores']} launches of C for "
+                   f"{eng.prefill_chunks} prefill chunks")
+
+
+def _check_session(phase, report, result, metrics, counts, n_items, eng):
+    _check_chunks(phase, counts, eng)
     if counts["decode_query_attention_int8"] <= 0:
         die(phase, f"the Session path launched no int8 query kernel: "
                    f"{counts}")
@@ -978,7 +1034,7 @@ def phase_session_planted(torch):
         torch, sess, [ds.items], frame)
     emit("session_explain", text=str(report))
     _check_session("session_planted", report, result, metrics, counts,
-                   len(ds.items))
+                   len(ds.items), sess.engine)
     query, plan = frame.to_query(), result.raw.plan
 
     # the same plan by the port on the CPU, over the same stored profiles
@@ -1018,6 +1074,7 @@ def phase_session_planted(torch):
          feasible=report.feasible, recall_bound=report.recall_bound,
          precision_bound=report.precision_bound, metrics=metrics,
          launches=counts, scan_launches=scan,
+         prefill_chunks=sess.engine.prefill_chunks,
          cpu_equal_outside_margin=cpu_same, cpu_equal_everywhere=all_same,
          n_near_margin=int(near.sum()), margin=MARGIN,
          cpu_ints_equal=_ints(result.raw) == _ints(cpu),
@@ -1060,7 +1117,7 @@ def phase_session_llama8b(torch, params):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit("session_explain", text=str(report))
     _check_session("session_llama8b", report, result, metrics, counts,
-                   len(ds.items))
+                   len(ds.items), eng)
     n_sample = max(20, round(0.15 * len(ds.items)))
     ids = [it.item_id for it in ds.items]
     scan = _scan_leg(torch, eng, "lg", [(0.5, True), (0.8, False)], ids[:4])
@@ -1086,6 +1143,7 @@ def phase_session_llama8b(torch, params):
          int8_stages=[s.op_name for s in report.stages
                       if s.op_name.endswith("i8")],
          feasible=report.feasible, metrics=metrics, launches=counts,
+         prefill_chunks=eng.prefill_chunks,
          scan_launches=scan, peak_mem_gb=peak_gb,
          build_steps_s=eng.build_seconds,
          int8_logits_max_abs_err=err, logits_max_abs=scale,
@@ -1119,10 +1177,11 @@ def _join_frame(sess, left, right):
             .with_guarantees(recall=TARGET, precision=TARGET))
 
 
-def _check_join(phase, result, metrics, counts, gold_may_be_empty=False):
-    """D, C and A launched; recall and precision at the targets against
-    gold_tree. With random weights (8B) the gold join may be empty; then
-    the result must be empty too."""
+def _check_join(phase, result, metrics, counts, eng, gold_may_be_empty=False):
+    """D, C (once per prefill chunk) and A launched; recall and precision
+    at the targets against gold_tree. With random weights (8B) the gold
+    join may be empty; then the result must be empty too."""
+    _check_chunks(phase, counts, eng)
     for name in ("prefill_attention", "expected_attention_scores",
                  "decode_query_attention"):
         if counts[name] <= 0:
@@ -1254,7 +1313,7 @@ def phase_session_join_planted(torch):
         torch, sess, [left.items, right.items],
         _join_frame(sess, left.items, right.items))
     emit("session_explain", text=str(report))
-    _check_join("session_join_planted", result, metrics, counts)
+    _check_join("session_join_planted", result, metrics, counts, sess.engine)
     plan = result.raw.plan
 
     # the hand-set plan on the card, counts from 0, from a cold device LRU
@@ -1304,7 +1363,7 @@ def phase_session_join_planted(torch):
          feasible=report.feasible, recall_bound=report.recall_bound,
          precision_bound=report.precision_bound, metrics=metrics,
          pairs_scored=len(result.pair_items), pairs=len(result.pair_ids),
-         launches=counts,
+         launches=counts, prefill_chunks=sess.engine.prefill_chunks,
          hand_stages={r: [s.op_name for s in p.stages]
                       for r, p in hand.roles.items()},
          hand_execute_s=hand_s, hand_metrics=hand_metrics,
@@ -1355,7 +1414,7 @@ def phase_session_join_llama8b(torch, params):
         _join_frame(sess, left.items, right.items))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit("session_explain", text=str(report))
-    _check_join("session_join_llama8b", result, metrics, counts,
+    _check_join("session_join_llama8b", result, metrics, counts, eng,
                 gold_may_be_empty=True)
     emit("session_join_llama8b", ok=True,
          items=[len(left.items), len(right.items)], item_tokens=JOIN_8B_LEN,
@@ -1365,7 +1424,8 @@ def phase_session_join_llama8b(torch, params):
          split=report.split, est_pairs=report.est_pairs,
          feasible=report.feasible, metrics=metrics,
          pairs_scored=len(result.pair_items), pairs=len(result.pair_ids),
-         launches=counts, peak_mem_gb=peak_gb,
+         launches=counts, prefill_chunks=eng.prefill_chunks,
+         peak_mem_gb=peak_gb,
          build_steps_s=eng.build_seconds,
          stage_stats=[s.as_dict() for s in result.stage_stats])
     sess.close()
@@ -1387,7 +1447,7 @@ KERNEL_META = {
                               "src/repro/kernels/decode_attention.py:78"),
     "expected_attention_scores": (
         "src/repro_torch/csrc/expected_attention.cu",
-        "src/repro/kernels/expected_attention.py:38"),
+        "src/repro/kernels/expected_attention.py:53"),
 }
 # kernel D's two bodies, each a kernel of its own in the kernels line
 PREFILL_BODIES = {

@@ -2,13 +2,15 @@
 """Split the decode kernel's (A's) device time by phase, on one NVIDIA card.
 
     python3 scripts/decode_phase_split.py                   # csrc's kernel
+    python3 scripts/decode_phase_split.py --int8            # over int8 K/V
     python3 scripts/decode_phase_split.py --source OLD.cu   # another version
 
 Copies the decode source (default `src/repro_torch/csrc/decode_attention.cu`)
 with clock64 / globaltimer stamps added at the boundaries of its phases,
 builds the copy with nvcc under `build/phase_split/`, runs it on random
-inputs at chip_smoke.py's decode shapes (float32 / bfloat16 body), and
-prints one JSON line per shape: live CTAs, the mean cycles of each phase
+inputs at chip_smoke.py's decode shapes (float32 / bfloat16 K/V, or with
+--int8 the same K/V quantised to int8 with per-row scales, as the int8
+rungs hold them), and prints one JSON line per shape: live CTAs, the mean cycles of each phase
 per live CTA and their shares, the mean CTA duration, the kernel's span
 and how many live CTAs an SM holds on average, and the kernel's time
 (CUDA events, L2 flushed with a write before each launch). The copy is
@@ -21,6 +23,8 @@ source:
   one-launch     8 warps each load, score and weigh 16 positions; the CTA
                  merges its warps, writes its partial, counts its arrival,
                  and the last CTA of an (item, KV head) merges the splits
+                 (one body for float32 / bfloat16 and int8 K/V; --int8
+                 needs it)
 
 The stamps slow the kernel down: the times printed are the instrumented
 copy's on this script's inputs, not the kernel's (chip_smoke.py times
@@ -112,9 +116,11 @@ def instrument_one_launch(src):
     src = _rep(src, "namespace {\n\n__device__ __forceinline__ float to_f(",
                GLOBALS + "namespace {\n\n__device__ __forceinline__ "
                "float to_f(")
-    src = _rep(src, "  T* ks = reinterpret_cast<T*>(smem_raw);   ",
-               START + "  long long t2 = 0, t3a = 0, t3 = 0, t4 = 0, "
-               "t6 = 0, t7 = 0;\n  T* ks = reinterpret_cast<T*>(smem_raw);   ")
+    ks = ("  TKV* ks = reinterpret_cast<TKV*>(smem_raw);   "
+          if "namespace body {" in src else
+          "  T* ks = reinterpret_cast<T*>(smem_raw);   ")
+    src = _rep(src, ks, START + "  long long t2 = 0, t3a = 0, t3 = 0, t4 = 0,"
+               " t6 = 0, t7 = 0;\n" + ks)
     src = _rep(src, "  __syncthreads();\n\n  if (warp_live) {",
                "  __syncthreads();\n  const long long t1 = clock64();\n\n"
                "  if (warp_live) {")
@@ -143,16 +149,24 @@ def instrument_one_launch(src):
     src = _rep(src, "  __syncthreads();\n  if (!is_last) return;\n",
                "  __syncthreads();\n  t7 = clock64();\n  if (!is_last) {\n"
                + rec + "    return;\n  }\n")
-    src = _rep(src, "                       R, reinterpret_cast<float*>"
-                    "(smem_raw));\n}\n",
-               "                       R, reinterpret_cast<float*>"
-               "(smem_raw));\n  __syncthreads();\n  const long long t8 = "
-               "clock64();\n" + RECORD.format(
-                   ts="t0, t1, t2, t3a, t3, t4, t5, t6, t7, t8",
-                   flags="1 | 2") + "}\n")
+    tail = re.search(r"R, reinterpret_cast<float\*>\(smem_raw\)\);\n}\n", src)
+    if tail is None:
+        raise SystemExit("decode_phase_split: the final merge not found")
+    src = src[:tail.start()] + (
+        "R, reinterpret_cast<float*>(smem_raw));\n  __syncthreads();\n"
+        "  const long long t8 = clock64();\n" + RECORD.format(
+            ts="t0, t1, t2, t3a, t3, t4, t5, t6, t7, t8", flags="1 | 2")
+        + "}\n") + src[tail.end():]
     return src + PROBE_API, (
         "issue_and_q", "wait_k", "qk_softmax", "wait_v", "pv", "other_warps",
         "warp_merge_partial", "fence_arrive", "final_merge")
+
+
+def _quantize(torch, x):
+    """int8 rows and (B, S, KV) absmax scales, as the int8 rungs hold them."""
+    s = x.float().abs().amax(-1) / 127.0
+    return torch.round(x.float() / s.clamp(min=1e-9)[..., None]) \
+        .to(torch.int8), s
 
 
 def time_ms(torch, fn, flush, iters=20, warmup=3):
@@ -180,6 +194,8 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "phase_split"))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 K/V with per-row scales (the int8 entry)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -188,11 +204,15 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     src = open(args.source).read()
-    one_launch = "namespace fp {" in src
+    one_launch = "namespace fp {" in src or "namespace body {" in src
+    if args.int8 and "namespace body {" not in src:
+        raise SystemExit("decode_phase_split: --int8 takes the one-launch "
+                         "body shared by float and int8 K/V")
     src, phases = (instrument_one_launch(src) if one_launch
                    else instrument_split_combine(src))
     os.makedirs(args.out, exist_ok=True)
-    tag = args.label or ("one_launch" if one_launch else "split_combine")
+    tag = args.label or ("one_launch" if one_launch else "split_combine") \
+        + ("_int8" if args.int8 else "")
     cu = os.path.join(args.out, f"decode_{tag}.cu")
     so = os.path.join(args.out, f"libdecode_{tag}.so")
     with open(cu, "w") as f:
@@ -200,8 +220,9 @@ def main() -> int:
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
                    check=True)
     lib = ctypes.CDLL(so)
-    entry = lib.stretto_decode_query_attention
-    n_ptr = 9 if one_launch else 8
+    entry = (lib.stretto_decode_query_attention_int8 if args.int8
+             else lib.stretto_decode_query_attention)
+    n_ptr = (11 if args.int8 else 9) if one_launch else 8
     entry.argtypes = [_P] * n_ptr + [_I] * 8 + [_F, _I, _P]
     entry.restype = _I
     lib.probe_read.argtypes = [_P]
@@ -212,7 +233,7 @@ def main() -> int:
         split = int(re.search(r"constexpr int CHUNK = (\d+);", src).group(1))
     counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
 
-    def call(q, k, v, lens):
+    def call(q, k, v, lens, scales=()):
         B, Lq, KV, G, dk = q.shape
         S, dv = v.shape[1], v.shape[3]
         n_split = (S + split - 1) // split
@@ -221,7 +242,8 @@ def main() -> int:
         pl = torch.empty((B, KV, n_split, Lq * G), **f32)
         pa = torch.empty((B, KV, n_split, Lq * G, dv), **f32)
         out = torch.empty((B, Lq, KV, G, dv), dtype=q.dtype, device="cuda")
-        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                *(x.data_ptr() for x in scales), lens.data_ptr(),
                 out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pa.data_ptr()]
         if one_launch:
             ptrs.append(counters.data_ptr())
@@ -250,19 +272,25 @@ def main() -> int:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
         q, k, v = rnd(B, Lq, KV, G, dk), rnd(B, S, KV, dk), rnd(B, S, KV, dk)
+        scales = ()
+        if args.int8:
+            (k, ks), (v, vs) = _quantize(torch, k), _quantize(torch, v)
+            scales = (ks, vs)
         lens = torch.randint(Lq, S - 2, (B,), generator=gen, device="cuda",
                              dtype=torch.int32)
         lens[0] = S - 3
-        row = {"shape": label, "B": B, "Lq": Lq, "S": S}
+        row = {"shape": label, "B": B, "Lq": Lq, "S": S,
+               "kv_dtype": "int8" if args.int8 else str(dt)[6:]}
         if not one_launch:
             lib.probe_skip_combine(1)
-            row["split_kernel_ms"] = time_ms(torch, lambda: call(q, k, v,
-                                                                 lens), flush)
+            row["split_kernel_ms"] = time_ms(torch, lambda: call(q, k, v, lens),
+                                         flush)
             lib.probe_skip_combine(0)
-        row["kernel_ms"] = time_ms(torch, lambda: call(q, k, v, lens), flush)
+        row["kernel_ms"] = time_ms(torch, lambda: call(q, k, v, lens, scales),
+                                   flush)
         flush.zero_()
         assert lib.probe_clear() == 0
-        call(q, k, v, lens)
+        call(q, k, v, lens, scales)
         torch.cuda.synchronize()
         buf = np.zeros(1 << 20, dtype=np.uint64)
         assert lib.probe_read(buf.ctypes.data) == 0

@@ -5,7 +5,8 @@ The port of `repro.cache.compression`. Offline pipeline:
      each layer's post-norm hidden states, project them to queries, and
      fit per-head Gaussians N(mu, diag(sig2)) of the future queries.
   2. score positions with kernels.ops.expected_attention_scores (the
-     hand-written CUDA kernel on the card).
+     hand-written CUDA kernel on the card), one call per prefill chunk
+     (`score_chunk`).
   3. keep the top (1 - ratio) positions per item per layer, ties broken
      toward the lower position as `jax.lax.top_k` does.
 
@@ -13,7 +14,7 @@ The port covers GQA k/v caches (the MLA latent scoring waits with MLA).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,21 +54,31 @@ def calibrate_query_stats(params, cfg: ModelConfig, tokens,
     return QueryStats(mu.to(q.dtype), sig2.to(q.dtype))
 
 
+def score_chunk(cfg: ModelConfig, cache: Dict[str, Any], stats: QueryStats,
+                lengths: Sequence[int], kernels=None) -> torch.Tensor:
+    """Keep-scores of every item of a prefill chunk, in one call of the
+    Expected-Attention kernel over all layers and items (the JAX package
+    maps its kernel over the layers with `jax.vmap`, item by item).
+    cache["k"]: (L, B, S, KV, dk); `lengths`: B ints. Returns (L, B, S)
+    float32, the mean over KV heads, -inf at and beyond each item's
+    length. A score depends only on its own K row and its layer's stats,
+    so an item's scores are the same, bit for bit, alone or in a chunk."""
+    k = cache["k"]
+    scores = KOPS.expected_attention_scores(
+        k, stats.mu, stats.sig2, backend=kernels).mean(-1)   # (L, B, S)
+    pos = torch.arange(k.shape[2], device=scores.device)
+    lens = torch.tensor(list(lengths), device=scores.device)
+    live = pos[None, None, :] < lens[None, :, None]
+    return torch.where(live, scores, torch.full_like(scores, -float("inf")))
+
+
 def score_positions(cfg: ModelConfig, cache: Dict[str, Any],
                     stats: QueryStats, length: int, kernels=None
                     ) -> torch.Tensor:
     """Per-layer keep-scores for one item. cache["k"]: (L, 1, S, KV, dk).
-    Returns (L, S) float32, -inf at and beyond `length`."""
-    k = cache["k"]
-    S = k.shape[2]
-    scores = torch.stack([
-        KOPS.expected_attention_scores(k[l], stats.mu[l], stats.sig2[l],
-                                       backend=kernels)
-        for l in range(k.shape[0])])               # (L, 1, S, KV)
-    scores = scores[:, 0].mean(-1)                  # (L, S)
-    pos = torch.arange(S, device=scores.device)[None, :]
-    return torch.where(pos < length, scores,
-                       torch.full_like(scores, -float("inf")))
+    Returns (L, S) float32, -inf at and beyond `length` (`score_chunk`
+    at B 1)."""
+    return score_chunk(cfg, cache, stats, [length], kernels)[:, 0]
 
 
 def top_k_positions(scores: torch.Tensor, keep: int) -> torch.Tensor:

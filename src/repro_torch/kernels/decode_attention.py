@@ -23,13 +23,12 @@ A query row that sees no cache position (lengths < Lq, or a window that
 excludes every position) gets the mean of V over all S positions, as the
 JAX package's kernels and oracles return it.
 
-The float32 / bfloat16 wrappers launch one kernel per call (splits of
-SPLIT positions, merged by the last CTA of each (item, KV head) to
-arrive); its blocked algorithm has a CPU twin,
-`kernels/ref.decode_query_attention_twin`. The arrival counters live in
-an int buffer kept per (device, stream): each launch leaves it at zero.
-The int8 wrappers launch a split kernel over CHUNK positions and a
-combine kernel. dk and dv are at most 256.
+Every wrapper launches one kernel per call, one body for all four
+(splits of SPLIT positions, merged by the last CTA of each (item, KV
+head) to arrive); its blocked algorithm, over float32 / bfloat16 or int8
+K/V, has a CPU twin, `kernels/ref.decode_query_attention_twin`. The
+arrival counters live in an int buffer kept per (device, stream): each
+launch leaves it at zero. dk and dv are at most 256.
 
 Every wrapper takes CUDA tensors only and launches the kernel; the plain
 versions in `kernels/ref.py` serve CPU tensors (see `kernels/ops.py`).
@@ -46,8 +45,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import GLOBAL
 
-SPLIT = 128           # cache positions per split, float32 / bf16 body
-CHUNK = 128           # cache positions per split, int8 body
+SPLIT = 128           # cache positions per split
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -66,10 +64,10 @@ def _lib():
         f.argtypes = [_P] * 9 + [_I] * 7 + [_F, _I, _P]
         f.restype = _I
         f = lib.stretto_decode_query_attention_int8
-        f.argtypes = [_P] * 10 + [_I] * 8 + [_F, _I, _P]
+        f.argtypes = [_P] * 11 + [_I] * 8 + [_F, _I, _P]
         f.restype = _I
         f = lib.stretto_decode_attention_int8
-        f.argtypes = [_P] * 10 + [_I] * 7 + [_F, _I, _P]
+        f.argtypes = [_P] * 11 + [_I] * 7 + [_F, _I, _P]
         f.restype = _I
         _bound.add("sig")
     return lib
@@ -98,7 +96,7 @@ def _check(q, k_cache, v_cache, lengths, q_ndim: int, what: str,
                         f"and k, v of type {kv_dtype}; got q {q.dtype}, k "
                         f"{k_cache.dtype}, v {v_cache.dtype}")
     B, KV, dk = q.shape[0], q.shape[-3], q.shape[-1]
-    if not quant and max(dk, v_cache.shape[-1]) > MAX_HEAD_DIM:
+    if max(dk, v_cache.shape[-1]) > MAX_HEAD_DIM:
         raise ValueError(f"{what}: the kernel takes dk, dv <= {MAX_HEAD_DIM}"
                          f"; got {dk}, {v_cache.shape[-1]}")
     if k_cache.shape[0] != B or v_cache.shape[0] != B \
@@ -121,8 +119,8 @@ def _check(q, k_cache, v_cache, lengths, q_ndim: int, what: str,
     return out
 
 
-def _scratch(B, KV, S, R, dv, device, chunk=CHUNK):
-    n_split = (S + chunk - 1) // chunk
+def _scratch(B, KV, S, R, dv, device):
+    n_split = (S + SPLIT - 1) // SPLIT
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((B, KV, n_split, R), **f32),
             torch.empty((B, KV, n_split, R), **f32),
@@ -159,7 +157,7 @@ def decode_query_attention(q, k_cache, v_cache, lengths, *,
     B, Lq, KV, G, dk = q.shape
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, Lq, KV, G, dv), dtype=q.dtype, device=q.device)
-    pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device, SPLIT)
+    pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device)
     arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_query_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
@@ -181,7 +179,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     B, KV, G, dk = q.shape
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, KV, G, dv), dtype=q.dtype, device=q.device)
-    pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device, SPLIT)
+    pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device)
     arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
@@ -206,11 +204,13 @@ def decode_query_attention_int8(q, k_cache, v_cache, k_scale, v_scale,
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, Lq, KV, G, dv), dtype=q.dtype, device=q.device)
     pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device)
+    arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_query_attention_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), lens.data_ptr(), out.data_ptr(), pm.data_ptr(),
-        pl.data_ptr(), pacc.data_ptr(), B, Lq, KV, G, dk, dv, S,
-        _window(window), dk ** -0.5, _DTYPES[q.dtype], _stream(q.device))
+        pl.data_ptr(), pacc.data_ptr(), arrivals.data_ptr(), B, Lq, KV, G,
+        dk, dv, S, _window(window), dk ** -0.5, _DTYPES[q.dtype],
+        _stream(q.device))
     build.check(err, "decode_query_attention_int8")
     _count(decode_query_attention_int8)
     return out
@@ -226,11 +226,13 @@ def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths, *,
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, KV, G, dv), dtype=q.dtype, device=q.device)
     pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device)
+    arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_attention_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), lens.data_ptr(), out.data_ptr(), pm.data_ptr(),
-        pl.data_ptr(), pacc.data_ptr(), B, KV, G, dk, dv, S, _window(window),
-        dk ** -0.5, _DTYPES[q.dtype], _stream(q.device))
+        pl.data_ptr(), pacc.data_ptr(), arrivals.data_ptr(), B, KV, G, dk,
+        dv, S, _window(window), dk ** -0.5, _DTYPES[q.dtype],
+        _stream(q.device))
     build.check(err, "decode_attention_int8")
     _count(decode_attention_int8)
     return out

@@ -128,6 +128,8 @@ def prefill_attention(q, k, v, *, window=GLOBAL, causal: bool = True,
 
 
 def expected_attention_scores(k_cache, mu, sig2, *, backend=None):
+    """Expected-Attention keep-scores; k ([L,] B, S, KV, dk) with stats
+    ([L,] KV, G, dk) -> ([L,] B, S, KV) float32, one launch on the card."""
     if use_kernel(backend, k_cache):
         return _ea.expected_attention_scores(k_cache, mu, sig2)
     return ref.expected_attention_scores_ref(k_cache, mu, sig2)

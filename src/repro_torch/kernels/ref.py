@@ -7,9 +7,9 @@ mean of V over all S positions, as in the JAX package. The
 wrappers in `kernels/ops.py` use them for tensors on the CPU, and
 `chip_smoke.py` holds each hand kernel against them on the card.
 The `*_twin` functions are no plain versions: each repeats the blocked
-algorithm of one hand kernel (A / B's float32 / bfloat16 body, and both
-bodies of D), for the tests and `chip_smoke.py`, and no wrapper calls
-them.
+algorithm of one hand kernel (A / B's body, over float32 / bfloat16 or
+int8 K/V; C; both bodies of D), for the tests and `chip_smoke.py`, and
+no wrapper calls them.
 """
 from __future__ import annotations
 
@@ -71,12 +71,17 @@ def _decode_span(n: int, Lq: int, S: int, window: int):
     return lo, hi
 
 
-def decode_uses_mma(dtype, dk: int, dv: int) -> bool:
-    """Whether kernel A / B's float32 / bfloat16 body runs these inputs on
-    the tensor cores: bfloat16 with dk and dv multiples of 16, at most
-    128 (the rule of `csrc/decode_attention.cu`, for contiguous inputs)."""
-    return (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0
-            and dk <= 128 and dv <= 128)
+def decode_uses_mma(dtype, dk: int, dv: int, quant: bool = False) -> bool:
+    """Whether kernel A / B's body runs these inputs on the tensor cores
+    (the rule of `csrc/decode_attention.cu`, for contiguous inputs):
+    bfloat16 q with, over bfloat16 K/V, dk and dv multiples of 16 up to
+    128; over int8 K/V (`quant`), dk 64 or 128 and dv a multiple of 32 up
+    to 128."""
+    if dtype != torch.bfloat16:
+        return False
+    if quant:
+        return dk in (64, 128) and dv % 32 == 0 and dv <= 128
+    return dk % 16 == 0 and dv % 16 == 0 and dk <= 128 and dv <= 128
 
 
 def _merge(m, l, acc):
@@ -95,31 +100,41 @@ def _merge(m, l, acc):
 
 
 def decode_query_attention_twin(q, k_cache, v_cache, lengths, *,
-                                window: int = GLOBAL):
-    """Eager twin of the float32 / bfloat16 body of kernels A and B
+                                window: int = GLOBAL, k_scale=None,
+                                v_scale=None):
+    """Eager twin of the body of kernels A and B
     (`csrc/decode_attention.cu`): its blocked algorithm, for the tests and
-    `chip_smoke.py` (never the main path).
+    `chip_smoke.py` (never the main path). With k_scale / v_scale (B, S,
+    KV), k_cache / v_cache are int8 (the int8 kernels' twin).
 
     Per item, the splits of DECODE_SPLIT positions that hold a visible
     position, in order; per split, eight warps of DECODE_SUB positions,
     each with its own softmax (m, l, acc) over positions outside the
     item's visible span zero-filled and masked to -inf; the warps merged
     in order, then the splits in order; rows that see nothing get the
-    mean of V over all S positions. Sums in float32. Where the kernel runs
-    on the tensor cores (`decode_uses_mma`), the scores are (q . k) *
-    dk^-0.5 and P goes to P V as a bf16 high part plus a bf16 low part;
-    else they are (q * dk^-0.5) . k and P stays float32. Each item runs on
-    its own with shapes fixed by the split, so its output does not depend
-    on the batch or its padding."""
+    mean of (dequantised) V over all S positions. Sums in float32. Where
+    the kernel runs on the tensor cores (`decode_uses_mma`), the scores
+    are (q . k) * dk^-0.5 and P goes to P V as a bf16 high part plus a
+    bf16 low part; else they are (q * dk^-0.5) . k and P stays float32.
+    int8: the K scale multiplies the score right after the product, and
+    the V scale is folded into P (after l is summed) before P is split.
+    Each item runs on its own with shapes fixed by the split, so its
+    output does not depend on the batch or its padding."""
     B, Lq, KV, G, dk = q.shape
     S, dv = k_cache.shape[1], v_cache.shape[3]
     R, dev = Lq * G, q.device
+    quant = k_scale is not None
     window = min(int(window), GLOBAL)
     n_split = -(-S // DECODE_SPLIT)
     pad = n_split * DECODE_SPLIT - S
-    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
-    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
-    mma = decode_uses_mma(q.dtype, dk, dv)
+
+    def padded(x):
+        return torch.nn.functional.pad(
+            x.float(), (0, 0) * (x.dim() - 2) + (0, pad))
+    kf, vf = padded(k_cache), padded(v_cache)
+    if quant:
+        ksf, vsf = padded(k_scale), padded(v_scale)       # (B, S', KV)
+    mma = decode_uses_mma(q.dtype, dk, dv, quant)
     scale = dk ** -0.5
     qf = (q.float() * (1.0 if mma else scale)).permute(0, 2, 1, 3, 4) \
         .reshape(B, KV, R, dk)
@@ -128,7 +143,9 @@ def decode_query_attention_twin(q, k_cache, v_cache, lengths, *,
     for b in range(B):
         n = int(lengths[b])
         lo, hi = _decode_span(n, Lq, S, window)
-        mean = v_cache[b].float().mean(0)[:, None, :].expand(KV, R, dv)
+        vb = dequantize(v_cache[b], v_scale[b]) if quant else \
+            v_cache[b].float()
+        mean = vb.mean(0)[:, None, :].expand(KV, R, dv)
         if lo > hi:
             out[b] = mean
             continue
@@ -140,6 +157,9 @@ def decode_query_attention_twin(q, k_cache, v_cache, lengths, *,
             kt = torch.where(inside, kf[b, pos], 0.0)      # (w, SUB, KV, dk)
             vt = torch.where(inside, vf[b, pos], 0.0)
             sc = torch.einsum("hrd,wphd->whrp", qf[b], kt)
+            if quant:                                      # (w, KV, 1, SUB)
+                ks = torch.where(inside[..., 0], ksf[b, pos], 0.0)
+                sc = sc * ks.permute(0, 2, 1)[:, :, None, :]
             if mma:
                 sc = sc * scale
             live = ((pos[:, None, :] <= hi) & (pos[:, None, :] <= q_pos)
@@ -148,13 +168,17 @@ def decode_query_attention_twin(q, k_cache, v_cache, lengths, *,
             m = x.amax(-1)
             e = torch.where((m == -torch.inf)[..., None], 0.0,
                             torch.exp(x - m[..., None]))
+            p = e
+            if quant:
+                vs = torch.where(inside[..., 0], vsf[b, pos], 0.0)
+                p = e * vs.permute(0, 2, 1)[:, :, None, :]
             if mma:
-                p_hi = e.to(torch.bfloat16).float()
-                p_lo = (e - p_hi).to(torch.bfloat16).float()
+                p_hi = p.to(torch.bfloat16).float()
+                p_lo = (p - p_hi).to(torch.bfloat16).float()
                 acc = torch.einsum("whrp,wphd->whrd", p_hi, vt) + \
                     torch.einsum("whrp,wphd->whrd", p_lo, vt)
             else:
-                acc = torch.einsum("whrp,wphd->whrd", e, vt)
+                acc = torch.einsum("whrp,wphd->whrd", p, vt)
             parts.append(_merge(m, e.sum(-1), acc))
         m, l, acc = (torch.stack(t) for t in zip(*parts))
         M, l, acc = _merge(m, l, acc)
@@ -165,11 +189,12 @@ def decode_query_attention_twin(q, k_cache, v_cache, lengths, *,
 
 
 def decode_attention_twin(q, k_cache, v_cache, lengths, *,
-                          window: int = GLOBAL):
+                          window: int = GLOBAL, k_scale=None, v_scale=None):
     """Kernel B's twin: kernel A's at Lq = 1; (B, KV, G, dk) ->
     (B, KV, G, dv)."""
     return decode_query_attention_twin(q[:, None], k_cache, v_cache, lengths,
-                                       window=window)[:, 0]
+                                       window=window, k_scale=k_scale,
+                                       v_scale=v_scale)[:, 0]
 
 
 def dequantize(x, scale):
@@ -347,10 +372,71 @@ def prefill_attention_fma_twin(q, k, v, *, window: int = GLOBAL,
 
 
 def expected_attention_scores_ref(k_cache, mu, sig2):
-    """k: (B, S, KV, dk); mu, sig2: (KV, G, dk) -> (B, S, KV) f32."""
+    """k: ([L,] B, S, KV, dk); mu, sig2: ([L,] KV, G, dk) -> ([L,] B, S, KV)
+    float32 (the JAX package's `jax.vmap` over layers of its oracle)."""
+    if k_cache.dim() == 4:
+        return expected_attention_scores_ref(k_cache[None], mu[None],
+                                             sig2[None])[0]
     dk = k_cache.shape[-1]
     scale = dk ** -0.5
     kf = k_cache.float()
-    lin = torch.einsum("bshd,hgd->bshg", kf, mu.float())
-    quad = torch.einsum("bshd,hgd->bshg", kf * kf, sig2.float())
+    lin = torch.einsum("lbshd,lhgd->lbshg", kf, mu.float())
+    quad = torch.einsum("lbshd,lhgd->lbshg", kf * kf, sig2.float())
     return torch.mean(lin * scale + 0.5 * quad * scale * scale, dim=-1)
+
+
+def ea_factors(dk: int, G: int):
+    """Kernel C's folded factors (fa, fc) = (dk^-1/2 / G, 0.5 / dk / G),
+    rounded once to float32 where they are used."""
+    return dk ** -0.5 / G, 0.5 / dk / G
+
+
+def ea_lanes(dtype, dk: int) -> int:
+    """Lanes per K row in kernel C (`csrc/expected_attention.cu`) for
+    16-byte-aligned rows: the row's count of 16-byte vectors when it is a
+    power of two up to 32, 32 at 64 vectors; else 1 (the row kernel, which
+    also takes KV heads x dk above 6144)."""
+    nbytes = dk * torch.tensor([], dtype=dtype).element_size()
+    chunks = nbytes // 16 if nbytes % 16 == 0 else 0
+    if chunks and chunks & (chunks - 1) == 0 and chunks <= 64:
+        return min(chunks, 32)
+    return 1
+
+
+def expected_attention_scores_twin(k_cache, mu, sig2):
+    """Eager twin of kernel C (`csrc/expected_attention.cu`): its algorithm
+    and order of sums, for the tests and `chip_smoke.py` (never the main
+    path). Shapes as `expected_attention_scores_ref`.
+
+    Per (layer, KV head) the stats summed over g in order and scaled by
+    `ea_factors`: a = sum_g mu_g * fa, c = sum_g sig2_g * fc. A row of dk
+    elements is `ea_lanes` slices of dk / lanes elements; a slice sums
+    k (a + k c) in order, and the slices' partials are added by an xor
+    butterfly (offsets lanes/2 .. 1), whose lane 0 gives the score. Sums
+    in float32; the kernel's FMAs round once where this rounds twice."""
+    if k_cache.dim() == 4:
+        return expected_attention_scores_twin(k_cache[None], mu[None],
+                                              sig2[None])[0]
+    L, B, S, KV, dk = k_cache.shape
+    G = mu.shape[2]
+    fa, fc = (torch.tensor(f, dtype=torch.float32) for f in ea_factors(dk, G))
+    sa, sc = mu[:, :, 0].float(), sig2[:, :, 0].float()
+    for g in range(1, G):
+        sa, sc = sa + mu[:, :, g].float(), sc + sig2[:, :, g].float()
+    a = (sa * fa)[:, None, None]                     # (L, 1, 1, KV, dk)
+    c = (sc * fc)[:, None, None]
+    W = ea_lanes(k_cache.dtype, dk)
+    epl = dk // W
+    kf = k_cache.float()
+    part = torch.zeros((L, B, S, KV, W), device=k_cache.device)
+    x = kf.reshape(L, B, S, KV, W, epl)
+    ar, cr = a.reshape(L, 1, 1, KV, W, epl), c.reshape(L, 1, 1, KV, W, epl)
+    for e in range(epl):
+        xe = x[..., e]
+        part = part + xe * (ar[..., e] + xe * cr[..., e])
+    lane = torch.arange(W, device=k_cache.device)
+    off = W // 2
+    while off:
+        part = part + part[..., lane ^ off]
+        off //= 2
+    return part[..., 0]

@@ -59,7 +59,7 @@ import torch
 
 from repro_torch.cache.compression import (QueryStats, calibrate_query_stats,
                                            compress_item_cache, quantize_kv,
-                                           score_positions)
+                                           score_chunk)
 from repro_torch.cache.store import CacheStore, Profile
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -138,6 +138,7 @@ class ServingEngine:
         self.attn_dispatches = 0
         # seconds spent in each offline build step (BUILD_STEPS)
         self.build_seconds = {k: 0.0 for k in BUILD_STEPS}
+        self.prefill_chunks = 0
 
     # ---------------- placement + transfer telemetry ----------------
 
@@ -186,10 +187,13 @@ class ServingEngine:
                        quant_ratios: Sequence[float] = ()):
         """Prefill every item once, compress at every ratio, persist.
 
-        Scores do not depend on the ratio, so each item is scored once and
-        every rung keeps its top positions from those scores (the JAX
-        engine rescores per rung; the kept sets are the same). Seconds per
-        step accumulate in `build_seconds`."""
+        Scores do not depend on the ratio, so each prefill chunk is scored
+        once (`score_chunk`: one Expected-Attention launch over its layers
+        and items) and every rung of an item keeps its top positions from
+        its slice of those scores (the JAX engine rescores item by item and
+        rung by rung; the kept sets are the same). Seconds per step
+        accumulate in `build_seconds`; `prefill_chunks` counts the chunks
+        prefilled."""
         em = self.models[model_name]
         cfg = em.cfg
         secs = self.build_seconds
@@ -213,23 +217,30 @@ class ServingEngine:
                                kernels=self.kernels)
             self._sync()
             secs["prefill"] += time.perf_counter() - t0
+            self.prefill_chunks += 1
+            scores = None
+            if any(r > 0 for r in ratios) or quant_ratios:
+                t0 = time.perf_counter()
+                scores = score_chunk(cfg, cache, em.stats,
+                                     [len(it.tokens) for it in chunk],
+                                     kernels=self.kernels)   # (L, B, S)
+                secs["compress"] += time.perf_counter() - t0
             for bi, it in enumerate(chunk):
                 item_cache = {k: cache[k][:, bi:bi + 1] for k in ("k", "v")}
                 n = len(it.tokens)
                 t0 = time.perf_counter()
-                scores = None
-                if any(r > 0 for r in ratios) or quant_ratios:
-                    scores = score_positions(cfg, item_cache, em.stats, n,
-                                             kernels=self.kernels)
+                item_scores = None if scores is None else scores[:, bi]
                 rungs = []
                 for ratio in ratios:
                     arrays, new_len = compress_item_cache(
-                        cfg, item_cache, em.stats, ratio, n, scores=scores)
+                        cfg, item_cache, em.stats, ratio, n,
+                        scores=item_scores)
                     rungs.append((Profile(model_name, ratio), arrays,
                                   new_len))
                 for ratio in quant_ratios:
                     arrays, new_len = compress_item_cache(
-                        cfg, item_cache, em.stats, ratio, n, scores=scores)
+                        cfg, item_cache, em.stats, ratio, n,
+                        scores=item_scores)
                     rungs.append((Profile(model_name, ratio, quant=True),
                                   quantize_kv(arrays), new_len))
                 t1 = time.perf_counter()

@@ -296,3 +296,61 @@ def test_query_stats_in_bfloat16_match_jax():
         assert tn == jn
         np.testing.assert_array_equal(
             tarr["k"].float().numpy(), np.asarray(jarr["k"], np.float32))
+
+
+def _planted_chunk(engines, size, n_items=6):
+    """A prefill chunk of planted items of several lengths, through the JAX
+    package's model: the chunk's cache, the lengths and the JAX stats."""
+    jeng, _, ds = engines
+    jcfg = jsyn.planted_config(size)
+    em = jeng.models[size]
+    items = ds.items[:n_items]
+    lengths = [len(it.tokens) - 7 * i for i, it in enumerate(items)]
+    toks = np.zeros((n_items, max(lengths)), np.int32)
+    for i, (it, n) in enumerate(zip(items, lengths)):
+        toks[i, :n] = it.tokens[:n]
+    _, jcache = jT.prefill(em.params, jcfg, tokens=jnp.asarray(toks))
+    return jcfg, em.stats, jcache, lengths
+
+
+@pytest.mark.parametrize("size", ["sm", "lg"])
+def test_score_chunk_equals_items_bitwise(engines, size):
+    """One call over the chunk gives every item the scores it gets scored
+    alone (score_positions), bit for bit, on the CPU's plain version."""
+    _, stats, jcache, lengths = _planted_chunk(engines, size)
+    tcfg = tsyn.planted_config(size)
+    cache = {"k": torch.from_numpy(np.array(jcache["k"]))}
+    tstats = tcomp.QueryStats(torch.from_numpy(np.asarray(stats.mu)),
+                              torch.from_numpy(np.asarray(stats.sig2)))
+    chunk = tcomp.score_chunk(tcfg, cache, tstats, lengths)
+    assert chunk.shape == (tcfg.n_layers, len(lengths), cache["k"].shape[2])
+    for b, n in enumerate(lengths):
+        alone = tcomp.score_positions(tcfg, {"k": cache["k"][:, b:b + 1]},
+                                      tstats, n)
+        assert torch.equal(alone, chunk[:, b])
+        assert bool(torch.isinf(chunk[:, b, n:]).all())
+
+
+@pytest.mark.parametrize("size,ratio", [(s, r) for s in ("sm", "lg")
+                                        for r in (0.5, 0.8)])
+def test_chunk_kept_positions_match_jax(engines, size, ratio):
+    """Each item's kept positions from its slice of the chunk's scores
+    equal those of the JAX package's compress_item_cache on the item
+    alone (the same cache rows and stats): the gathered K and V rows are
+    identical."""
+    jcfg, stats, jcache, lengths = _planted_chunk(engines, size)
+    tcfg = tsyn.planted_config(size)
+    cache = {k: torch.from_numpy(np.array(jcache[k])) for k in ("k", "v")}
+    tstats = tcomp.QueryStats(torch.from_numpy(np.asarray(stats.mu)),
+                              torch.from_numpy(np.asarray(stats.sig2)))
+    chunk = tcomp.score_chunk(tcfg, cache, tstats, lengths)
+    for b, n in enumerate(lengths):
+        item = {k: v[:, b:b + 1] for k, v in cache.items()}
+        got, got_n = tcomp.compress_item_cache(tcfg, item, tstats, ratio, n,
+                                               scores=chunk[:, b])
+        jitem = {k: jcache[k][:, b:b + 1] for k in ("k", "v")}
+        want, want_n = jcomp.compress_item_cache(jcfg, jitem, stats, ratio,
+                                                 n)
+        assert got_n == want_n
+        for key in ("k", "v"):
+            np.testing.assert_array_equal(got[key].numpy(), want[key])

@@ -13,10 +13,11 @@ the plain versions, which dequantise up front. The full-width
 stretto-llama-8b prefill (32 layers, bfloat16) holds its caches and
 logits, prefill kernel against the blocked attention, to 5 % of their
 largest magnitude: bfloat16 rounding differences carried through 32
-layers of random weights. The redesigned kernels (A / B's float32 /
-bfloat16 body, D's FMA body) are also held to their CPU twins' blocked
-algorithms run on the card, at the same tolerances: the two differ only in
-the order of float32 sums.
+layers of random weights. The redesigned kernels (A / B's body over
+float32 / bfloat16 and over int8 K/V, C, D's FMA body) are also held to
+their CPU twins' blocked algorithms run on the card, at the same
+tolerances: the two differ only in the order of float32 sums. C's
+scores are held to 2e-5 x max(1, |score|) (float32 sums of dk terms).
 """
 import pytest
 import torch
@@ -277,6 +278,108 @@ def test_expected_attention_matches_plain(gpu, B, S, KV, G, dk, dtype):
     assert got.dtype == torch.float32 and got.shape == (B, S, KV)
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, atol=2e-5 * scale, rtol=0)
+
+
+# (L, B, S, KV, G, dk, dtype): the 8B chunks (Session and hand plan), the
+# planted chunks (dk 16: lanes of 16-byte vectors; dk 24: the row kernel),
+# and bf16 dk 18 (element loads)
+EA_CHUNKS = [(32, 4, 512, 8, 4, 128, torch.bfloat16),
+             (4, 16, 1024, 8, 4, 128, torch.bfloat16),
+             (2, 16, 160, 2, 1, 16, torch.float32),
+             (2, 16, 160, 4, 1, 24, torch.float32),
+             (3, 2, 77, 2, 3, 18, torch.bfloat16),
+             (2, 3, 100, 2, 4, 128, torch.float32)]
+
+
+def _ea_chunk(seed, L, B, S, KV, G, dk, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn((L, B, S, KV, dk), generator=g, device="cuda").to(dtype)
+    mu = torch.randn((L, KV, G, dk), generator=g, device="cuda").to(dtype)
+    sig2 = torch.rand((L, KV, G, dk), generator=g, device="cuda").to(dtype)
+    return k, mu, sig2
+
+
+def _ea_close(got, want):
+    tol = 2e-5 * want.abs().clamp(min=1.0)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("L,B,S,KV,G,dk,dtype", EA_CHUNKS)
+def test_expected_attention_layered_matches_plain_and_twin(gpu, L, B, S, KV,
+                                                           G, dk, dtype):
+    """One launch over every layer and item of a chunk (stats in the model
+    dtype), against the plain version and C's CPU twin run on the card."""
+    k, mu, sig2 = _ea_chunk(S + dk, L, B, S, KV, G, dk, dtype)
+    before = EA.expected_attention_scores.launches
+    got = EA.expected_attention_scores(k, mu, sig2)
+    assert EA.expected_attention_scores.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (L, B, S, KV)
+    _ea_close(got, ref.expected_attention_scores_ref(k, mu, sig2))
+    _ea_close(got, ref.expected_attention_scores_twin(k, mu, sig2))
+
+
+@pytest.mark.parametrize("dtype,dk", [(torch.bfloat16, 128),
+                                      (torch.float32, 16),
+                                      (torch.float32, 24)])
+def test_expected_attention_item_bitwise_alone_and_in_chunk(gpu, dtype, dk):
+    """Every item's scores are bit-identical scored alone (its strided
+    slice, or a contiguous copy) and at its place in the chunk: a score
+    depends on its K row and its layer's stats alone."""
+    k, mu, sig2 = _ea_chunk(dk, 3, 5, 300, 4, 2, dk, dtype)
+    chunk = EA.expected_attention_scores(k, mu, sig2)
+    for b in range(5):
+        alone = EA.expected_attention_scores(k[:, b:b + 1], mu, sig2)
+        copy = EA.expected_attention_scores(k[:, b:b + 1].contiguous(), mu,
+                                            sig2)
+        shorter = EA.expected_attention_scores(k[:, b:b + 1, :170], mu, sig2)
+        assert torch.equal(alone[:, 0], chunk[:, b])
+        assert torch.equal(copy[:, 0], chunk[:, b])
+        assert torch.equal(shorter[:, 0], chunk[:, b, :170])
+    # one layer without the layer axis: the same scores
+    assert torch.equal(EA.expected_attention_scores(k[1], mu[1], sig2[1]),
+                       chunk[1])
+
+
+def test_expected_attention_planted_shapes_launch_the_kernel(gpu):
+    """The planted chunks (float32, dk 16 and 24) go through `ops` to the
+    kernel, never to the plain version."""
+    from repro_torch.cache.compression import QueryStats, score_chunk
+    for KV, dk in ((2, 16), (4, 24)):
+        k, mu, sig2 = _ea_chunk(dk, 2, 16, 160, KV, 1, dk, torch.float32)
+        before = ops.launch_counts()["expected_attention_scores"]
+        got = score_chunk(None, {"k": k}, QueryStats(mu, sig2), [160] * 16)
+        assert ops.launch_counts()["expected_attention_scores"] == before + 1
+        want = ref.expected_attention_scores_ref(k, mu, sig2).mean(-1)
+        _ea_close(got, want)
+
+
+@pytest.mark.parametrize("B,Lq,KV,G,dk,dv,S,dtype,window", CASES + [
+    (4, 3, 8, 4, 128, 128, 1152, torch.bfloat16, GLOBAL),    # R = 12 at 8B
+    (4, 1, 8, 4, 64, 96, 640, torch.bfloat16, 200)])
+def test_decode_int8_matches_twin(gpu, B, Lq, KV, G, dk, dv, S, dtype,
+                                  window):
+    """The int8 body against its CPU twin run on the card (and the plain
+    version), A and, at Lq 1, B."""
+    q, k, v, lengths = _inputs(S + dk + 5, B, Lq, KV, G, dk, dv, S, dtype)
+    k8, v8, ks, vs = _quantized(k, v)
+    got = DA.decode_query_attention_int8(q, k8, v8, ks, vs, lengths,
+                                         window=window)
+    twin = ref.decode_query_attention_twin(q, k8, v8, lengths, window=window,
+                                           k_scale=ks, v_scale=vs)
+    want = ref.decode_query_attention_int8_ref(q, k8, v8, ks, vs, lengths,
+                                               window=window)
+    torch.testing.assert_close(got.float(), twin.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    if Lq == 1:
+        got1 = DA.decode_attention_int8(q[:, 0], k8, v8, ks, vs, lengths,
+                                        window=window)
+        twin1 = ref.decode_attention_twin(q[:, 0], k8, v8, lengths,
+                                          window=window, k_scale=ks,
+                                          v_scale=vs)
+        torch.testing.assert_close(got1.float(), twin1.float(),
+                                   atol=TOL[dtype], rtol=0)
 
 
 def test_backends_on_cuda_tensors(gpu):

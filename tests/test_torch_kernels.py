@@ -600,3 +600,181 @@ def test_prefill_fma_twin_is_batch_invariant(G, window):
     alone = ref.prefill_attention_fma_twin(q[1:2, :137], k[1:2, :137],
                                            v[1:2, :137], window=window)
     assert torch.equal(alone[0], batched[1, :137])
+
+
+# Kernel C over every layer of a chunk: the port's layered call ((L, B, S,
+# KV, dk) with (L, KV, G, dk) stats) against `jax.vmap` of the Pallas kernel
+# (interpret mode) over the layers, as the JAX package scores an item; and
+# C's CPU twin (kernels/ref.expected_attention_scores_twin: stats reduced
+# over g first, per-lane slices, a butterfly) against the plain version.
+# Tolerance 2e-5 x max(1, |score|): float32 sums of dk terms, in another
+# order (and, in the twin, after the reduction over g).
+EA_CASES = [(L, S, G, dk, dt) for (G, dk, dt), (L, S) in zip(
+    itertools.product((1, 4), (16, 24, 128), ("f32", "bf16")),
+    itertools.cycle([(2, 64), (3, 256), (2, 128)]))]
+
+
+def _ea_inputs(seed, L, B, S, KV, G, dk):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(L, B, S, KV, dk)).astype(np.float32),
+            rng.normal(size=(L, KV, G, dk)).astype(np.float32),
+            rng.random(size=(L, KV, G, dk)).astype(np.float32))
+
+
+def _ea_close(got, want):
+    want = np.asarray(want, np.float32)
+    tol = 2e-5 * np.maximum(1.0, np.abs(want))
+    assert np.all(np.abs(np.asarray(got, np.float32) - want) <= tol)
+
+
+@pytest.mark.parametrize("L,S,G,dk,dt", EA_CASES)
+def test_expected_attention_layered_matches_jax_vmap(L, S, G, dk, dt):
+    import jax
+    from repro.kernels import expected_attention as jea
+    arrs = _ea_inputs(L * S + G + dk, L, 2, S, 2, G, dk)
+    jdt, tdt, _ = DTYPES[dt]
+    want = jax.vmap(lambda k, m, s: jea.expected_attention_scores(
+        k, m, s, interpret=True))(*(jnp.asarray(a, jdt) for a in arrs))
+    got = ops.expected_attention_scores(
+        *(torch.from_numpy(a).to(tdt) for a in arrs))
+    assert got.dtype == torch.float32 and got.shape == (L, 2, S, 2)
+    _ea_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("L,S,G,dk,dt", EA_CASES)
+def test_expected_attention_twin_matches_plain(L, S, G, dk, dt):
+    k, mu, sig2 = (torch.from_numpy(a).to(DTYPES[dt][1]) for a in
+                   _ea_inputs(L + S * G + dk, L, 2, S, 2, G, dk))
+    want = ref.expected_attention_scores_ref(k, mu, sig2)
+    got = ref.expected_attention_scores_twin(k, mu, sig2)
+    assert got.shape == want.shape == (L, 2, S, 2)
+    _ea_close(got.numpy(), want.numpy())
+    # one layer without the layer axis is the same call
+    one = ref.expected_attention_scores_twin(k[1], mu[1], sig2[1])
+    assert torch.equal(one, got[1])
+
+
+@pytest.mark.parametrize("dtype,dk,want", [
+    (torch.bfloat16, 128, 16), (torch.float32, 128, 32),
+    (torch.float32, 256, 32), (torch.float32, 16, 4), (torch.bfloat16, 16, 2),
+    (torch.float32, 24, 1), (torch.bfloat16, 24, 1), (torch.bfloat16, 18, 1),
+    (torch.float32, 6, 1)])
+def test_expected_attention_lanes_rule(dtype, dk, want):
+    """Kernel C's lanes per K row: the count of 16-byte vectors when it is
+    a power of two (capped at 32), else one thread per row."""
+    assert ref.ea_lanes(dtype, dk) == want
+
+
+def test_expected_attention_layered_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import expected_attention as ea
+    k, mu, sig2 = (torch.from_numpy(a) for a in
+                   _ea_inputs(0, 2, 1, 64, 2, 1, 16))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ea.expected_attention_scores(k, mu, sig2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.expected_attention_scores(k, mu, sig2, backend="cuda")
+    assert ops.expected_attention_scores(k, mu, sig2).shape == (2, 1, 64, 2)
+    assert ops.launch_counts() == before
+
+
+# The int8 decode body's CPU twin (ref.decode_query_attention_twin with
+# k_scale / v_scale): K scale on the score after the product, V scale
+# folded into P, bf16 P split in two where the kernel uses the tensor
+# cores (bf16 q, dk 128). Held to the port's int8 plain version and the
+# JAX package's int8 path (its oracle; the Pallas kernel in interpret mode
+# for float32), at the dtype tolerances above.
+I8_CASES = list(itertools.product((1, 3), (GLOBAL, 40), (24, 128),
+                                  ("f32", "bf16")))
+
+
+def _int8_inputs(seed, B, Lq, S, KV, G, dk):
+    q, k, v, lengths = _inputs(seed, B, S, KV, G, dk, dk, Lq)
+    (k8, ks), (v8, vs) = _quant(k), _quant(v)
+    return q, k8, v8, ks, vs, lengths
+
+
+@pytest.mark.parametrize("lq,window,dk,dt", I8_CASES)
+def test_int8_twin_matches_plain_and_jax(lq, window, dk, dt):
+    q, k8, v8, ks, vs, lengths = _int8_inputs(lq * 7 + dk, 3, lq, 256, 2, 4,
+                                              dk)
+    jdt, tdt, tol = DTYPES[dt]
+    t = torch.from_numpy
+    tq = t(q).to(tdt)
+    got = ref.decode_query_attention_twin(tq, t(k8), t(v8), t(lengths),
+                                          window=window, k_scale=t(ks),
+                                          v_scale=t(vs))
+    plain = ref.decode_query_attention_int8_ref(tq, t(k8), t(v8), t(ks),
+                                                t(vs), t(lengths),
+                                                window=window)
+    backend = "interpret" if dt == "f32" else "ref"
+    want = jops.decode_query_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(lengths), window=window, backend=backend,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(plain), atol=tol, rtol=0)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=0)
+    if lq == 1:
+        got1 = ref.decode_attention_twin(tq[:, 0], t(k8), t(v8), t(lengths),
+                                         window=window, k_scale=t(ks),
+                                         v_scale=t(vs))
+        want1 = jops.decode_attention(
+            jnp.asarray(q[:, 0], jdt), jnp.asarray(k8), jnp.asarray(v8),
+            jnp.asarray(lengths), window=window, backend=backend,
+            k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        np.testing.assert_allclose(_f32(got1), _f32(want1), atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [GLOBAL, 0])
+def test_int8_twin_rows_that_see_no_position(dt, window):
+    """lengths < Lq, an empty item, a window of 0: the int8 twin gives such
+    rows the mean of the dequantised V over all S positions, as the JAX
+    package's int8 path does."""
+    q, k8, v8, ks, vs, lengths = _int8_inputs(19, 4, 3, 256, 2, 4, 128)
+    lengths[:] = [256, 1, 2, 0]
+    jdt, tdt, tol = DTYPES[dt]
+    t = torch.from_numpy
+    got = ref.decode_query_attention_twin(t(q).to(tdt), t(k8), t(v8),
+                                          t(lengths), window=window,
+                                          k_scale=t(ks), v_scale=t(vs))
+    want = jops.decode_query_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(lengths), window=window, backend="ref",
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=0)
+    mean = (v8.astype(np.float32) * vs[..., None])[3].mean(0)
+    np.testing.assert_allclose(_f32(got)[3, 0], np.broadcast_to(
+        mean[:, None, :], (2, 4, 128)), atol=tol)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 200])
+def test_int8_twin_is_batch_invariant(n):
+    """As the float twin: an item's int8 output is bit-identical alone (S
+    256) and inside a larger batch padded past one more split (S 384)."""
+    q, k8, v8, ks, vs, lengths = _int8_inputs(n, 3, 1, 384, 2, 4, 128)
+    lengths[1] = n
+    t = torch.from_numpy
+    tq = t(q).to(torch.bfloat16)
+    batched = ref.decode_query_attention_twin(
+        tq, t(k8), t(v8), t(lengths), k_scale=t(ks), v_scale=t(vs))
+    alone = ref.decode_query_attention_twin(
+        tq[1:2], t(k8)[1:2, :256], t(v8)[1:2, :256], t(lengths)[1:2],
+        k_scale=t(ks)[1:2, :256], v_scale=t(vs)[1:2, :256])
+    assert torch.equal(alone[0], batched[1])
+
+
+@pytest.mark.parametrize("dtype,dk,dv,quant,want", [
+    (torch.bfloat16, 128, 128, True, True), (torch.bfloat16, 64, 32, True,
+                                             True),
+    (torch.bfloat16, 32, 32, True, False), (torch.bfloat16, 128, 48, True,
+                                            False),
+    (torch.float32, 128, 128, True, False),
+    (torch.bfloat16, 32, 48, False, True), (torch.bfloat16, 24, 24, False,
+                                            False)])
+def test_decode_tensor_core_rule(dtype, dk, dv, quant, want):
+    """Which A / B inputs run on the tensor cores: bf16 q, and head dims
+    the body's fragments take (int8: dk 64 or 128, dv a multiple of 32)."""
+    assert ref.decode_uses_mma(dtype, dk, dv, quant) == want
