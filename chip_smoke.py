@@ -36,13 +36,21 @@ Phases, one JSON line each:
            sem_map task 2, recall and precision 0.75) through a
            repro_torch.Session on the card with int8 rungs declared
            (sm_int8 0.5, lg_int8 0.3): profiles, EXPLAIN (profiling + the
-           gradient planner), execute, metrics against gold; the same plan
-           on the CPU equal outside a margin; scan-path flushes (kernel B,
-           B-int8)
+           gradient planner, whose Adam steps run on the card as one CUDA
+           graph each, the bounds through kernel E), execute, metrics
+           against gold; the same plan on the CPU equal outside a margin;
+           scan-path flushes (kernel B, B-int8)
+  baselines_planted  the four comparison planners (core/baselines.py)
+           over the same corpus, planned on the card and executed through
+           the Session; each plan's CPU run equal outside the margin
   session_llama8b  the same query through Session(cfg, engine=eng) with
            stretto-llama-8b registered as "lg" (rungs 0.8 / 0.5 / int8 0.5
            / gold), 32 items of 512 tokens, scan-path flushes, and one
            int8 flush's logits kernel vs plain
+  baselines_llama8b  plan_query and the four comparison planners over the
+           8B Session's corpus and store (the paper's Exp 1 comparison at
+           8B width, no claim): plan / execute seconds, items/s, recall and
+           precision against gold, stages, A's launches
   session_join_planted  the join path: a sem_filter on each side of
            make_join_corpora (120 + 120 items) and sem_join "same v3"
            blocked on `category` (SemFrame.sem_join -> Session.plan_tree ->
@@ -55,6 +63,15 @@ Phases, one JSON line each:
   session_join_llama8b  the same tree through Session(cfg, engine=eng)
            with stretto-llama-8b as "lg" (ladder 0.5 + gold), 24 + 24
            items of 512 tokens
+  planner  over each Session's own optimizer call (planted, 8B): the
+           CUDA-graph loop against an eager loop on the card (bit for bit)
+           and the CPU's eager loop (the same stages but at picks within
+           5e-3 of 0.5), optimize_s of each, ms per graph replay, the
+           step's device time by part (torch.profiler: forward, bounds,
+           backward, Adam), and kernel E (csrc/beta_bounds.cu) against its
+           plain version on the card and the CPU and its twin, over the
+           Session's real (a, b, q) and a wide grid, timed at a step's
+           and the extraction's shapes beside its latency bound
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
@@ -68,7 +85,10 @@ read just after. The kernels line carries, per kernel, the sum of its
 counts over the Session paths (the quickstart query and the join, planted
 and 8B, with the scan legs and the hand-set join tree), and each path's
 count; D appears once per body (prefill_attention_tc, _fma), with that
-body's counts. Its bound_ms is the larger of the bytes over 3.35 TB/s and the
+body's counts; E once per entry (beta_incinv, beta_incinv_grad_terms),
+counting each launch a CUDA-graph replay makes, and its bound_ms is one
+FMA latency (4 cycles at 1.98 GHz) per continued-fraction term of its
+longest thread. Its bound_ms is the larger of the bytes over 3.35 TB/s and the
 flops over the peak rate for the operands' type (989 TFLOP/s on the bf16
 tensor cores, 67 TFLOP/s for float32). Any failed phase exits non-zero. Without CUDA, or without the
 repository around it, the script exits non-zero and prints no result.
@@ -904,15 +924,21 @@ def _frame(sess, items):
 
 class _PlanTimer:
     """Seconds plan_query spends profiling and optimizing, by wrapping the
-    two calls it makes (the planner reports only its total)."""
+    two calls it makes (the planner reports only its total), and the
+    arguments of each optimizer call (the profiled sample as the
+    optimizer got it, on the Session's device). The optimizer's seconds
+    end when its result is on the host (it copies its plan there)."""
 
     def __init__(self):
         import repro_torch.core.planner as P
         self.P, self.s = P, {"profile_s": 0.0, "optimize_s": 0.0}
         self.real = (P.profile_query, P.optimize_query)
+        self.opt_calls = []
 
         def timed(fn, key):
             def run(*a, **kw):
+                if key == "optimize_s":
+                    self.opt_calls.append((a, kw))
                 t0 = time.perf_counter()
                 try:
                     return fn(*a, **kw)
@@ -928,7 +954,8 @@ class _PlanTimer:
 
 def _drive_session(torch, sess, corpora, frame):
     """A path through the user's entry points, counts from 0: profiles
-    for every corpus, EXPLAIN (plan), execute, metrics against gold."""
+    for every corpus, EXPLAIN (plan), execute, metrics against gold. Also
+    returns the optimizer's calls (their arguments) of the plan."""
     from repro_torch.kernels import ops
     timer = _PlanTimer()
     ops.reset_launch_counts()
@@ -952,7 +979,7 @@ def _drive_session(torch, sess, corpora, frame):
                  execute_s=t3 - t2, execute_wall_s=result.wall_s,
                  items_per_s=sum(map(len, corpora)) / max(t3 - t2, 1e-9),
                  gold_s=time.perf_counter() - t3)
-    return report, result, metrics, counts, times
+    return report, result, metrics, counts, times, timer.opt_calls
 
 
 def _check_chunks(phase, counts, eng):
@@ -1012,14 +1039,113 @@ def _cpu_engine(cfg, root):
     return eng
 
 
+def _linear_card_vs_cpu(phase, sess, plan, query, items, card, cpu):
+    """One linear plan's card run against its CPU run: decisions equal for
+    every tuple whose card score at some stage sits more than MARGIN from
+    a threshold that stage applies, and, where every decision is equal,
+    equal integer telemetry. Returns (equal outside the margin, equal
+    everywhere, tuples near a threshold)."""
+    import numpy as np
+    from repro_torch.runtime.executor import run_operator
+    near = np.zeros(len(items), bool)
+    ops_ = query.semantic_ops
+    for st in plan.stages:
+        sc = np.asarray(run_operator(sess.backend, ops_[st.logical_idx],
+                                     st.op_name, items).scores)
+        thrs = [0.0] if st.is_gold else [
+            x for x in ((st.thr_hi,) if st.is_map else (st.thr_hi, st.thr_lo))
+            if math.isfinite(x)]
+        for x in thrs:
+            near |= np.abs(sc - x) < MARGIN
+    a, c = _decisions(card), _decisions(cpu)
+    far = ~near
+    cpu_same = bool(np.array_equal(a[0][far], c[0][far]) and all(
+        np.array_equal(a[1][li][far], c[1][li][far]) for li in a[1]))
+    if not cpu_same:
+        die(phase, "card and CPU decisions differ outside the margin")
+    all_same = bool(np.array_equal(a[0], c[0]) and all(
+        np.array_equal(a[1][li], c[1][li]) for li in a[1]))
+    if all_same and _ints(card) != _ints(cpu):
+        die(phase, f"integer telemetry differs: {_ints(card)} vs "
+                   f"{_ints(cpu)}")
+    return cpu_same, all_same, int(near.sum())
+
+
+BASELINES = ("plan_lotus", "plan_pareto_cascades", "plan_stretto_local",
+             "plan_stretto_independent")
+
+
+def _run_planners(torch, sess, query, items, with_stretto=False):
+    """Each comparison planner (and, `with_stretto`, plan_query) on the
+    Session's device over its backend, with the Session's planner
+    settings; each plan then executed through the Session. Counts from 0
+    per planner. Returns [(name, plan, result, row)] and the summed
+    counts."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.executor import evaluate_vs_gold
+    from repro_torch.core.planner import plan_query
+    from repro_torch.kernels import ops
+    cfg = sess.config
+    common = dict(sample_frac=cfg.sample_frac, seed=cfg.seed,
+                  device=sess.device)
+    planners = [(name, getattr(BL, name)) for name in BASELINES]
+    if with_stretto:
+        planners.insert(0, ("plan_query", plan_query))
+    gold = sess.gold(query, items)
+    out, total = [], None
+    for name, fn in planners:
+        kw = dict(common)
+        if name in ("plan_query", "plan_stretto_local",
+                    "plan_stretto_independent"):
+            kw["cfg"] = cfg.planner
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        plan = fn(query, items, sess.backend, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plan_counts = ops.launch_counts()
+        # from a cold device LRU, as a CPU run over the store starts: a
+        # hit loads no bytes, and profiling leaves the sample resident
+        sess.engine.evict()
+        result = sess.run(plan, query, items)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        m = evaluate_vs_gold(result, gold, query.semantic_ops)
+        a_launches = (counts["decode_query_attention"]
+                      + counts["decode_query_attention_int8"])
+        row = dict(planner=name, plan_s=t1 - t0, execute_s=t2 - t1,
+                   items_per_s=len(items) / max(t2 - t1, 1e-9),
+                   recall=m["recall"], precision=m["precision"],
+                   stages=[s_.op_name for s_ in plan.stages],
+                   feasible=plan.feasible, recall_bound=plan.recall_bound,
+                   precision_bound=plan.precision_bound,
+                   est_cost=plan.est_cost, a_launches=a_launches,
+                   e_launches_planning=plan_counts["beta_incinv"]
+                   + plan_counts["beta_incinv_grad_terms"],
+                   n_llm_tuples=result.n_llm_tuples)
+        if result.accepted.shape != (len(items),) or a_launches <= 0:
+            die("baselines", f"{name}: result of the wrong shape or no "
+                             f"launch of A: {row}")
+        if name != "plan_lotus" and name != "plan_pareto_cascades" \
+                and row["e_launches_planning"] <= 0:
+            die("baselines", f"{name} planned without kernel E on the card")
+        out.append((name, plan, result, row))
+        total = counts if total is None else {
+            k: (total[k] + v if not isinstance(v, dict) else
+                {b: total[k][b] + n for b, n in v.items()})
+            for k, v in counts.items()}
+    return out, total
+
+
 def phase_session_planted(torch):
     """The quickstart query through repro_torch.Session on the card, with
-    int8 rungs declared on both planted models."""
-    import numpy as np
+    int8 rungs declared on both planted models; then the comparison
+    planners over the same corpus (`baselines_planted`), each plan on the
+    card and on the CPU."""
     from repro_torch.api import Session, SessionConfig
     from repro_torch.core.optimizer import PlannerConfig
     from repro_torch.data import synthetic as syn
-    from repro_torch.runtime.executor import run_operator
 
     ds = syn.make_dataset("session", 200, seed=3)
     root = os.path.join(WORK, "session-planted")
@@ -1030,7 +1156,7 @@ def phase_session_planted(torch):
         partition_size=64, cache_dir=root)
     sess = Session(cfg)
     frame = _frame(sess, ds.items)
-    report, result, metrics, counts, times = _drive_session(
+    report, result, metrics, counts, times, opt_calls = _drive_session(
         torch, sess, [ds.items], frame)
     emit("session_explain", text=str(report))
     _check_session("session_planted", report, result, metrics, counts,
@@ -1039,30 +1165,10 @@ def phase_session_planted(torch):
 
     # the same plan by the port on the CPU, over the same stored profiles
     cpu_eng = _cpu_engine(cfg, root)
-    cpu = Session(cfg, engine=cpu_eng, device="cpu").run(plan, query,
-                                                         ds.items)
-    near = np.zeros(len(ds.items), bool)
-    ops_ = query.semantic_ops
-    for st in plan.stages:
-        s = np.asarray(run_operator(sess.backend, ops_[st.logical_idx],
-                                    st.op_name, ds.items).scores)
-        thrs = [0.0] if st.is_gold else [
-            x for x in ((st.thr_hi,) if st.is_map else (st.thr_hi, st.thr_lo))
-            if math.isfinite(x)]
-        for x in thrs:
-            near |= np.abs(s - x) < MARGIN
-    a, c = _decisions(result.raw), _decisions(cpu)
-    far = ~near
-    cpu_same = bool(np.array_equal(a[0][far], c[0][far]) and all(
-        np.array_equal(a[1][li][far], c[1][li][far]) for li in a[1]))
-    if not cpu_same:
-        die("session_planted", "card and CPU decisions differ outside the "
-                               "margin")
-    all_same = bool(np.array_equal(a[0], c[0]) and all(
-        np.array_equal(a[1][li], c[1][li]) for li in a[1]))
-    if all_same and _ints(result.raw) != _ints(cpu):
-        die("session_planted", f"integer telemetry differs: "
-                               f"{_ints(result.raw)} vs {_ints(cpu)}")
+    cpu_sess = Session(cfg, engine=cpu_eng, device="cpu")
+    cpu = cpu_sess.run(plan, query, ds.items)
+    cpu_same, all_same, n_near = _linear_card_vs_cpu(
+        "session_planted", sess, plan, query, ds.items, result.raw, cpu)
     ids = [it.item_id for it in ds.items[:16]]
     scan = _scan_leg(torch, sess.engine, "lg",
                      [(0.3, True), (0.5, False)], ids)
@@ -1076,13 +1182,28 @@ def phase_session_planted(torch):
          launches=counts, scan_launches=scan,
          prefill_chunks=sess.engine.prefill_chunks,
          cpu_equal_outside_margin=cpu_same, cpu_equal_everywhere=all_same,
-         n_near_margin=int(near.sum()), margin=MARGIN,
+         n_near_margin=n_near, margin=MARGIN,
          cpu_ints_equal=_ints(result.raw) == _ints(cpu),
          stage_stats=[s.as_dict() for s in result.stage_stats])
+
+    # the comparison planners on the card, each plan also on the CPU
+    runs, base_counts = _run_planners(torch, sess, query, ds.items)
+    rows = []
+    for name, bplan, bres, row in runs:
+        cpu_eng.evict()
+        bcpu = cpu_sess.run(bplan, query, ds.items)
+        row["cpu_equal_outside_margin"], row["cpu_equal_everywhere"], \
+            row["n_near_margin"] = _linear_card_vs_cpu(
+                "baselines_planted", sess, bplan, query, ds.items, bres,
+                bcpu)
+        rows.append(row)
+    emit("baselines_planted", ok=True, items=len(ds.items), planners=rows,
+         launches=base_counts)
     sess.close()
-    del sess, cpu_eng
+    cpu_sess.close()
+    del sess, cpu_sess, cpu_eng
     torch.cuda.empty_cache()
-    return counts, scan
+    return counts, scan, base_counts, opt_calls[-1]
 
 
 SESSION_8B_ITEMS, SESSION_8B_LEN = 32, 512
@@ -1112,7 +1233,7 @@ def phase_session_llama8b(torch, params):
         engines=(spec,), planner=PlannerConfig(steps=200, restarts=3)),
         engine=eng)
     torch.cuda.reset_peak_memory_stats()
-    report, result, metrics, counts, times = _drive_session(
+    report, result, metrics, counts, times, opt_calls = _drive_session(
         torch, sess, [ds.items], _frame(sess, ds.items))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit("session_explain", text=str(report))
@@ -1154,11 +1275,30 @@ def phase_session_llama8b(torch, params):
     if not ok:
         die("session_llama8b", f"int8 flush logits kernel vs plain: err "
                                f"{err} > {0.05 * scale} or non-finite")
+    del caches
+    # the Session and its store stay for baselines_llama8b
+    return counts, scan, opt_calls[-1], (sess, ds.items,
+                                         _frame(sess, ds.items).to_query())
+
+
+def phase_baselines_llama8b(torch, kept):
+    """The paper's Exp 1 comparison at 8B width on the card, no claim:
+    plan_query and the four comparison planners over the 8B Session's
+    corpus and store (not built again), each planned on the card and
+    executed through the Session; plan and execute seconds, items/s,
+    recall and precision against gold, stages, and A's launches. Then
+    the store is removed."""
+    sess, items, query = kept
+    runs, counts = _run_planners(torch, sess, query, items,
+                                 with_stretto=True)
+    emit("baselines_llama8b", ok=True, items=len(items),
+         item_tokens=SESSION_8B_LEN, planners=[r[3] for r in runs],
+         launches=counts)
     sess.close()
-    del sess, eng, caches
+    del sess, runs
     shutil.rmtree(os.path.join(WORK, "session-8b"), ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts, scan
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1309,7 +1449,7 @@ def phase_session_join_planted(torch):
         planner=PlannerConfig(steps=200, restarts=3), sample_frac=0.25,
         partition_size=64, cache_dir=root)
     sess = Session(cfg)
-    report, result, metrics, counts, times = _drive_session(
+    report, result, metrics, counts, times, opt_calls = _drive_session(
         torch, sess, [left.items, right.items],
         _join_frame(sess, left.items, right.items))
     emit("session_explain", text=str(report))
@@ -1409,7 +1549,7 @@ def phase_session_join_llama8b(torch, params):
         engines=(spec,), planner=PlannerConfig(steps=200, restarts=3)),
         engine=eng)
     torch.cuda.reset_peak_memory_stats()
-    report, result, metrics, counts, times = _drive_session(
+    report, result, metrics, counts, times, opt_calls = _drive_session(
         torch, sess, [left.items, right.items],
         _join_frame(sess, left.items, right.items))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1435,6 +1575,328 @@ def phase_session_join_llama8b(torch, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the planner on the card: kernel E and the optimizer's CUDA graph
+# ---------------------------------------------------------------------------
+
+E_TOL = dict(x=2e-5, fd=1e-3, pdf=1e-3)   # planner range (tests/test_torch_gpu)
+E_TOL_WIDE_X = 1e-4                      # a, b to 1e4: the root only
+FMA_LATENCY_CYCLES = 4                   # H100: a dependent float32 FMA
+BOOST_HZ = 1.98e9                        # H100 SXM maximum SM clock
+TIE = 5e-3                               # optimizer ties (ROADMAP queue 3)
+
+
+def _same_run(torch, a, b) -> bool:
+    """Two optimizer loops' outputs equal bit for bit: every restart's
+    parameters, every loss, every snapshot."""
+    return (torch.equal(a.flat, b.flat) and torch.equal(a.losses, b.losses)
+            and sorted(a.snaps) == sorted(b.snaps)
+            and all(torch.equal(a.snaps[i], b.snaps[i]) for i in a.snaps))
+
+
+def _tie_check(torch, card, cpu):
+    """Stages selected differently by the card's and the CPU's plan, each
+    with both final pick probabilities; None if one lies more than TIE
+    from 0.5."""
+    diff = []
+    for li, (sa, sb, pa, pb) in enumerate(zip(card.selected, cpu.selected,
+                                              card.params, cpu.params)):
+        qa = torch.sigmoid(pa.pick_logits.double())
+        qb = torch.sigmoid(pb.pick_logits.double())
+        for i in (sa != sb).nonzero()[0]:
+            i = int(i)
+            diff.append(dict(pipeline=li, op=i, p_card=float(qa[i]),
+                             p_cpu=float(qb[i])))
+            if abs(float(qa[i]) - 0.5) > TIE or abs(float(qb[i]) - 0.5) > TIE:
+                return None, diff
+    return True, diff
+
+
+def _record_e(torch, ops):
+    """Wrap ops.beta_incinv / beta_incinv_grad_terms to keep the inputs of
+    every call made outside a CUDA-graph capture (a, b, q / x); returns
+    (records, restore)."""
+    rec = {"fwd": [], "bwd": []}
+    real = (ops.beta_incinv, ops.beta_incinv_grad_terms)
+
+    def keep(key, ts):
+        if not torch.cuda.is_current_stream_capturing():
+            rec[key].append(tuple(t.detach().clone() for t in ts))
+
+    def fwd(a, b, q, **kw):
+        keep("fwd", torch.broadcast_tensors(a, b, q))
+        return real[0](a, b, q, **kw)
+
+    def bwd(a, b, x, **kw):
+        keep("bwd", (a, b, x))
+        return real[1](a, b, x, **kw)
+    ops.beta_incinv, ops.beta_incinv_grad_terms = fwd, bwd
+
+    def restore():
+        ops.beta_incinv, ops.beta_incinv_grad_terms = real
+    return rec, restore
+
+
+def _optimizer_split(torch, TO, prob, cfg):
+    """Device ms per Adam step by part, from a torch.profiler trace of
+    eager steps on the card: each kernel's launch is matched (by its
+    correlation id) to the host op that issued it, and that op's start to
+    the step's ranges (`optimizer.forward` / `.backward` / `.adam`,
+    record_function ranges in `adam_step`); kernel E (both entries) is
+    `bounds`. None where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps,
+                     graph=False)
+        torch.cuda.synchronize()
+    evs = prof.profiler.kineto_results.events()
+    host = {e.correlation_id(): e.start_ns() for e in evs
+            if e.device_type() == DeviceType.CPU}
+    names = ("optimizer.forward", "optimizer.backward", "optimizer.adam")
+    ranges = [(e.start_ns(), e.end_ns(), e.name().split(".", 1)[1])
+              for e in evs if e.device_type() == DeviceType.CPU
+              and e.name() in names]
+    split = dict.fromkeys(("forward", "bounds", "backward", "adam"), 0.0)
+    other, n_kernels = {}, 0
+    for e in evs:
+        # the device-side copies of the step's own ranges are no work
+        if e.device_type() != DeviceType.CUDA or e.name() in names:
+            continue
+        ms = e.duration_ns() / 1e6
+        t = host.get(e.linked_correlation_id())
+        part = "bounds" if "beta_incinv" in e.name() else next(
+            (n for lo, hi, n in ranges if t is not None and lo <= t <= hi),
+            None)
+        if part is None:
+            # device activity no host op of a step issued (not one of
+            # the step's kernels: the attributed sum is the graph's)
+            other[e.name()] = other.get(e.name(), 0.0) + ms
+            continue
+        n_kernels += 1
+        split[part] += ms
+    total = sum(split.values())
+    if total <= 0:
+        return None
+    per_step = {k + "_ms": v / cfg.steps for k, v in split.items()}
+    per_step["kernels_per_step"] = n_kernels / cfg.steps
+    per_step["device_ms_per_step"] = total / cfg.steps
+    per_step["other_device_ms_per_step"] = {
+        k: v / cfg.steps for k, v in sorted(
+            other.items(), key=lambda kv: -kv[1])[:4]}
+    return per_step
+
+
+def _e_bound_ms(terms) -> float:
+    """Kernel E's least time: the longest serial chain of any thread, one
+    dependent FMA latency per continued-fraction term it runs (each term
+    is a chain of a dozen dependent operations, two of them divisions, so
+    this is far below what the chain needs)."""
+    return int(terms.max()) * FMA_LATENCY_CYCLES / BOOST_HZ * 1e3
+
+
+def _e_rows(torch, flush, rec, label, main):
+    """Kernel E at one step's shape (the Session's bounds: restarts x 2)
+    and at the extraction's: the kernel against its plain version on the
+    card and on the CPU (the twin is held over every step's inputs by
+    `_e_grid_check`); its time beside the plain version's and the bound.
+    No PyTorch call computes betaincinv."""
+    from repro_torch.kernels import beta_bounds as BB
+    from repro_torch.kernels import ops, ref
+    rows = {"beta_incinv": [], "beta_incinv_grad_terms": []}
+    shapes = (("step", rec["fwd"][-2], rec["bwd"][-1], main),
+              ("extraction", rec["fwd"][-1], None, False))
+    # the continued-fraction terms each of E's threads runs, both shapes
+    # in one twin call on the CPU
+    flat = [torch.cat([sh[1][i].reshape(-1).cpu() for sh in shapes])
+            for i in range(3)]
+    _, terms = ref.betaincinv_twin(*flat, count=True)
+    terms = terms.split([sh[1][0].numel() for sh in shapes])
+    for (shape, fwd, bwd, is_main), fwd_terms in zip(shapes, terms):
+        a, b, q = (t.contiguous() for t in fwd)
+        x = BB.beta_incinv(a, b, q)
+        want = ops.beta_incinv(a, b, q, backend="ref")
+        cpu = ref.betaincinv_ref(a.cpu(), b.cpu(), q.cpu()).cuda()
+        row = dict(kernel="beta_incinv", shape=f"{label}-{shape}",
+                   n=a.numel(), max_abs_err=float((x - want).abs().max()),
+                   max_abs_err_vs_cpu=float((x - cpu).abs().max()),
+                   equal_to_cpu=int((x == cpu).sum()),
+                   cf_terms_max=int(fwd_terms.max()),
+                   kernel_ms=time_ms(torch, lambda: BB.beta_incinv(a, b, q),
+                                     flush),
+                   plain_ms=time_ms(torch, lambda: ops.beta_incinv(
+                       a, b, q, backend="ref"), flush, iters=5),
+                   bound_ms=_e_bound_ms(fwd_terms), bound_by="operations",
+                   library_ms=None, main_path_shape=is_main)
+        row["ok"] = max(row["max_abs_err"],
+                        row["max_abs_err_vs_cpu"]) <= E_TOL["x"]
+        rows["beta_incinv"].append(row)
+        emit("kernel", **row)
+        if not row["ok"]:
+            die("planner", f"kernel E at {row['shape']}: {row}")
+        if bwd is None:
+            continue
+        a, b, xb = (t.contiguous() for t in bwd)
+        fd, pdf = BB.beta_incinv_grad_terms(a, b, xb)
+        checks = [ops.beta_incinv_grad_terms(a, b, xb, backend="ref"),
+                  ref.betaincinv_grad_terms_twin(a, b, xb),
+                  [t.cuda() for t in ref.betaincinv_grad_terms_ref(
+                      a.cpu(), b.cpu(), xb.cpu())]]
+        _, _, bwd_terms = ref.betaincinv_grad_terms_twin(
+            a.cpu(), b.cpu(), xb.cpu(), count=True)
+        errs = [(float((fd - w[0]).abs().max()),
+                 float(((pdf - w[1]).abs() / w[1].abs()).max()))
+                for w in checks]
+        row = dict(kernel="beta_incinv_grad_terms", shape=f"{label}-{shape}",
+                   n=a.numel(), max_abs_err=errs[0][0],
+                   max_abs_err_vs_twin=errs[1][0],
+                   max_abs_err_vs_cpu=errs[2][0],
+                   pdf_max_rel_err=max(e[1] for e in errs),
+                   cf_terms_max=int(bwd_terms.max()),
+                   kernel_ms=time_ms(torch, lambda: BB.beta_incinv_grad_terms(
+                       a, b, xb), flush),
+                   plain_ms=time_ms(torch, lambda: ops.beta_incinv_grad_terms(
+                       a, b, xb, backend="ref"), flush, iters=5),
+                   bound_ms=_e_bound_ms(bwd_terms), bound_by="operations",
+                   library_ms=None, main_path_shape=is_main)
+        row["ok"] = (max(e[0] for e in errs) <= E_TOL["fd"]
+                     and row["pdf_max_rel_err"] <= E_TOL["pdf"])
+        rows["beta_incinv_grad_terms"].append(row)
+        emit("kernel", **row)
+        if not row["ok"]:
+            die("planner", f"kernel E's gradient terms at {row['shape']}: "
+                           f"{row}")
+    return rows
+
+
+def _e_grid_check(torch, rec):
+    """E over every (a, b, q) the eager card loop gave the bounds (the
+    Session path's real inputs), and a, b log-uniform in [0.5, 1e4] at q
+    near 0, 0.5 and 1, against the plain version (card and CPU) and the
+    twin."""
+    from repro_torch.kernels import beta_bounds as BB
+    from repro_torch.kernels import ops, ref
+    a, b, q = (torch.cat([r[i].reshape(-1) for r in rec["fwd"]])
+               for i in range(3))
+    x = BB.beta_incinv(a, b, q)
+    errs = {"real_vs_plain": float((x - ops.beta_incinv(
+        a, b, q, backend="ref")).abs().max()),
+        "real_vs_twin": float((x - ref.betaincinv_twin(a, b, q))
+                              .abs().max()),
+        "real_vs_cpu": float((x - ref.betaincinv_ref(
+            a.cpu(), b.cpu(), q.cpu()).cuda()).abs().max())}
+    gen = torch.Generator().manual_seed(17)
+    lo, hi = math.log(0.5), math.log(1e4)
+    wa, wb = torch.exp(torch.empty(2, 512).uniform_(lo, hi, generator=gen))
+    wide = 0.0
+    for qv in (1e-6, 0.05, 0.5, 0.95, 1 - 1e-6):
+        wq = torch.full_like(wa, qv)
+        got = BB.beta_incinv(wa.cuda(), wb.cuda(), wq.cuda()).cpu()
+        wide = max(wide, float((got - ref.betaincinv_ref(wa, wb, wq))
+                               .abs().max()))
+    errs["wide_vs_cpu"] = wide
+    ok = max(errs[k] for k in errs if k != "wide_vs_cpu") <= E_TOL["x"] \
+        and wide <= E_TOL_WIDE_X
+    return dict(real_elements=a.numel(),
+                real_a_range=[float(a.min()), float(a.max())],
+                real_b_range=[float(b.min()), float(b.max())],
+                q=sorted(set(q.cpu().tolist())), **errs, ok=ok)
+
+
+def phase_planner(torch, problems):
+    """The planner on the card, over each Session's own optimizer call
+    (the profiled sample as the optimizer got it): the CUDA-graph loop
+    against an eager loop on the card (bit for bit) and the CPU's eager
+    loop (same selections but at 0.5 ties), optimize_s of each in this
+    run, the graph's ms per replay, the step's device time by part, and
+    kernel E against its plain version and twin over the real inputs and
+    a wide grid."""
+    import dataclasses
+    from repro_torch.core import optimizer as TO
+    from repro_torch.kernels import ops
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    e_rows = {"beta_incinv": [], "beta_incinv_grad_terms": []}
+    for label, (args, kw) in problems.items():
+        cfg = args[4]
+        row = dict(steps=cfg.steps, restarts=cfg.restarts)
+        plans = {}
+        for name, extra in (("card_graph", {}), ("cpu", {"device": "cpu"})):
+            # the card plan's last call to E outside the capture is the
+            # extraction's
+            rec, restore = _record_e(torch, ops) if name == "card_graph" \
+                else (None, lambda: None)
+            if rec is not None:
+                extraction = rec
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                plans[name] = TO.optimize_query(*args, **{**kw, **extra})
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            row[f"optimize_s_{name}"] = time.perf_counter() - t0
+            c = ops.launch_counts()
+            row[f"e_launches_{name}"] = [c["beta_incinv"],
+                                         c["beta_incinv_grad_terms"]]
+        ties, diff = _tie_check(torch, plans["card_graph"], plans["cpu"])
+        row.update(selected_card=[s_.tolist() for s_ in
+                                  plans["card_graph"].selected],
+                   selected_cpu=[s_.tolist() for s_ in plans["cpu"].selected],
+                   selections_equal=not diff, differing_picks=diff,
+                   recall_bound=[plans[k].recall_bound for k in plans],
+                   precision_bound=[plans[k].precision_bound for k in plans],
+                   est_cost=[plans[k].est_cost for k in plans])
+        if ties is None:
+            die("planner", f"{label}: card and CPU select differently away "
+                           f"from a 0.5 tie: {diff}")
+        # the loop alone: graph replays against the same step eagerly on
+        # the card, bit for bit, then the step's split
+        prob = TO.setup_problem(*args, **kw)
+        loops = {}
+        for name, graph in (("graph", True), ("eager", False)):
+            rec, restore = (None, lambda: None) if graph \
+                else _record_e(torch, ops)
+            if rec is not None:
+                steps_rec = rec
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                loops[name] = TO.adam_loop(prob.loss_fn, prob.flat0, cfg,
+                                           prob.snap_steps, graph=graph)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            row[f"loop_s_{name}"] = time.perf_counter() - t0
+        if not _same_run(torch, loops["graph"], loops["eager"]):
+            die("planner", f"{label}: the CUDA-graph loop and the eager "
+                           f"loop on the card disagree")
+        run = loops["graph"]
+        row.update(graph_equals_eager_bitwise=True,
+                   replays_per_plan=run.replays, capture_s=run.capture_s,
+                   graph_ms_per_replay=(row["loop_s_graph"] - run.capture_s)
+                   / max(run.replays, 1) * 1e3)
+        # the eager loop's inputs to E, and the extraction's (the graph
+        # plan's last forward call)
+        e_rec = {"fwd": steps_rec["fwd"] + extraction["fwd"][-1:],
+                 "bwd": steps_rec["bwd"]}
+        short = dataclasses.replace(cfg, steps=10)
+        split = _optimizer_split(torch, TO, TO.setup_problem(
+            *args[:4], short, **kw), short)
+        row["split_per_step"] = split
+        row["e_grid"] = _e_grid_check(torch, e_rec)
+        if not row["e_grid"]["ok"]:
+            die("planner", f"{label}: kernel E over the grid: "
+                           f"{row['e_grid']}")
+        for name, rs in _e_rows(torch, flush, e_rec, label,
+                                main=label == "session_llama8b").items():
+            e_rows[name] += rs
+        emit("planner", ok=True, path=label, **row)
+    del flush
+    return e_rows
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -1448,6 +1910,14 @@ KERNEL_META = {
     "expected_attention_scores": (
         "src/repro_torch/csrc/expected_attention.cu",
         "src/repro/kernels/expected_attention.py:53"),
+}
+# kernel E's two entries: XLA-compiled code in the JAX package (no
+# pallas_call), the bisection and the custom VJP's backward
+E_META = {
+    "beta_incinv": ("src/repro_torch/csrc/beta_bounds.cu",
+                    "src/repro/core/bounds.py:27"),
+    "beta_incinv_grad_terms": ("src/repro_torch/csrc/beta_bounds.cu",
+                               "src/repro/core/bounds.py:54"),
 }
 # kernel D's two bodies, each a kernel of its own in the kernels line
 PREFILL_BODIES = {
@@ -1485,7 +1955,7 @@ def _kernel_entry(name, source, replaces, rows, launches_by_path):
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": row["kernel_ms"], "ms_read_flush": row["kernel_ms_read"],
+            "ms": row["kernel_ms"], "ms_read_flush": row.get("kernel_ms_read"),
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]}
@@ -1514,22 +1984,29 @@ def main() -> int:
         phase_planted(torch)
         paths = {}
         paths["llama8b"], params = phase_llama8b(torch)
-        paths["session_planted"], paths["session_planted_scan"] = \
+        problems = {}
+        (paths["session_planted"], paths["session_planted_scan"],
+         paths["baselines_planted"], problems["session_planted"]) = \
             phase_session_planted(torch)
         paths["session_join_planted"], paths["session_join_planted_hand"] \
             = phase_session_join_planted(torch)
-        paths["session_llama8b"], paths["session_llama8b_scan"] = \
+        (paths["session_llama8b"], paths["session_llama8b_scan"],
+         problems["session_llama8b"], kept) = \
             phase_session_llama8b(torch, params)
+        paths["baselines_llama8b"] = phase_baselines_llama8b(torch, kept)
+        del kept
         paths["session_join_llama8b"] = phase_session_join_llama8b(torch,
                                                                    params)
         del params
         _check_prefill_bodies(paths)
+        rows.update(phase_planner(torch, problems))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     session_paths = {p: c for p, c in paths.items() if p != "llama8b"}
     kernels = [_kernel_entry(name, source, replaces, rows[name],
                              {p: c[name] for p, c in session_paths.items()})
-               for name, (source, replaces) in KERNEL_META.items()]
+               for name, (source, replaces) in {**KERNEL_META,
+                                                **E_META}.items()]
     for body, (source, replaces) in PREFILL_BODIES.items():
         kernels.append(_kernel_entry(
             f"prefill_attention_{body}", source, replaces,

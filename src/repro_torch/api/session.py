@@ -11,7 +11,10 @@ api/frame.py).
 The engine runs on `EngineSpec.device` (a torch device; "cuda" unless the
 caller says otherwise, as every entry point of the port): on the card its
 decode flushes and profile scoring launch the hand-written CUDA kernels,
-and a missing card raises instead of running on the CPU.
+and a missing card raises instead of running on the CPU. Planning runs
+its gradient optimizer on the same device (`Session.device`): on the
+card one Adam step is a CUDA graph replayed per step, and a
+`device="cpu"` session plans eagerly on the host.
 
 Join trees go through `plan_tree` / `run_tree` / `gold_tree` (and
 `SemFrame.sem_join`). Not ported yet (each raises NotImplementedError and
@@ -35,6 +38,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.logical import Query
+from repro_torch.device import resolve_device
 from repro_torch.core.optimizer import PlannerConfig
 from repro_torch.core.planner import plan_query
 from repro_torch.core.physical import PhysicalPlan
@@ -345,6 +349,14 @@ class Session:
             # list, gold last) are the reference
             self.reference = self.backend
 
+    @property
+    def device(self):
+        """Where the session plans (its gradient optimizer's loop): the
+        engine's device, else the configured one."""
+        if self.engine is not None:
+            return self.engine.device
+        return resolve_device(self.config.device)
+
     # ---------------- lifecycle ----------------
 
     def _build_engines(self) -> Dict[str, Any]:
@@ -549,7 +561,8 @@ class Session:
                     reorder=cfg.reorder,
                     coalesce=cfg.coalesce if cfg.coalesce is not None
                     else DEFAULT_COALESCE,
-                    measured=self.measured if len(self.measured) else None)
+                    measured=self.measured if len(self.measured) else None,
+                    device=self.device)
                 self._plan_cache[key] = plan
             return plan
 
@@ -652,7 +665,8 @@ class Session:
                     reorder=cfg.reorder,
                     coalesce=cfg.coalesce if cfg.coalesce is not None
                     else DEFAULT_COALESCE,
-                    measured=self.measured if len(self.measured) else None)
+                    measured=self.measured if len(self.measured) else None,
+                    device=self.device)
                 self._plan_cache[key] = plan
             return plan
 

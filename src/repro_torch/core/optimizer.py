@@ -20,17 +20,35 @@ the K independent losses are summed, and one `backward` gives every
 restart its own gradient (no restart's loss depends on another's
 parameters). The Adam arithmetic, the init grid, the tau schedule and the
 snapshot extraction are the reference's.
+
+Where the loop runs follows the reference's jit, which runs on its
+default device: `optimize_query(device=...)` (default: where the
+pipelines' tensors lie) puts every tensor of the problem there.
+  CPU   `eager_loop`: one eager Adam step after another.
+  CUDA  `adam_loop`: one Adam step (forward through the relaxation, the
+        bounds through kernel E, `torch.autograd.grad`, Adam) written
+        over static state tensors (`adam_step`), captured once as a
+        `torch.cuda.CUDAGraph` and replayed `cfg.steps` times; step and
+        tau live on the device, losses and snapshots are copied into
+        preallocated buffers, and nothing reads the device until the
+        discrete extraction copies its candidates to the host once.
+        `adam_loop(graph=False)` runs the same step eagerly (bit for bit
+        the graph's result).
+The Exp 3 baselines (`core/baselines.py`) run their own loss through the
+same loop (`run_adam`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import bounds as B
 from repro_torch.core import relaxation as R
+from repro_torch.kernels import beta_bounds as _E
 
 _F32 = torch.float32
 
@@ -103,7 +121,7 @@ def init_pipeline_params(data: R.PipelineData, pick0: float = 0.5,
     med = _median(data.scores)
     spread = torch.clamp(data.scores.std(dim=1, unbiased=False), min=1e-3)
     return R.PipelineParams(
-        pick_logits=torch.zeros(n) + pick0,
+        pick_logits=torch.zeros(n, device=data.scores.device) + pick0,
         thr_hi=med + width * spread,
         thr_lo=med - width * spread,
     )
@@ -116,27 +134,192 @@ def _bounds(c: R.QueryCounts, credibility: float):
     return both[0], both[1]
 
 
-def optimize_query(pipelines: Sequence[R.PipelineData],
-                   gold_membership: np.ndarray,
-                   target_recall: float, target_precision: float,
-                   cfg: Optional[PlannerConfig] = None,
-                   batch_hint: Optional[R.BatchHint] = None,
-                   groups: Optional[Sequence[R.TreeGroup]] = None
-                   ) -> OptimizedPlan:
-    """batch_hint activates the batch-size-aware cost model for pipelines
-    carrying fixed per-call costs (see relaxation.BatchHint).
+def pipelines_on(pipelines: Sequence[R.PipelineData], device
+                 ) -> List[R.PipelineData]:
+    """The pipelines with every tensor on `device`."""
+    fields = ("scores", "costs", "correct", "fixed", "batch_cap",
+              "meas_width")
+    return [p._replace(**{f: getattr(p, f).to(device) for f in fields
+                          if getattr(p, f) is not None})
+            for p in pipelines]
 
-    groups switches the simulation from the linear `query_counts` chain
-    to the grouped `tree_counts` (join trees: side pipelines reset their
-    reach, the pairing cascade's entry mass is the product of the side
-    survivals, and per-group cost weights / hints price each pipeline
-    against its own corpus), so the query-level error budget is
-    allocated across every pipeline of the tree by the same joint
-    gradient relaxation."""
-    cfg = cfg if cfg is not None else PlannerConfig()
+
+def tau_decay(cfg: PlannerConfig) -> float:
+    """The per-step factor of the exponential temperature schedule."""
+    return (cfg.tau_end / cfg.tau_start) ** (1.0 / max(cfg.steps - 1, 1))
+
+
+def snapshot_steps(cfg: PlannerConfig) -> List[int]:
+    """Steps after which the parameters are kept as extraction
+    candidates (conservative early, aggressive late)."""
+    every = max(cfg.steps // max(cfg.snapshots, 1), 1)
+    return [j * every - 1 for j in range(1, cfg.snapshots)
+            if 0 <= j * every - 1 < cfg.steps - 1]
+
+
+class AdamRun(NamedTuple):
+    flat: torch.Tensor                  # (K, P) after the last step
+    losses: torch.Tensor                # (steps, K)
+    snaps: Dict[int, torch.Tensor]      # step -> (K, P) after that step
+    replays: int = 0                    # CUDA graph replays (0: eager)
+    capture_s: float = 0.0              # host s for warm-up and capture
+
+
+def eager_loop(loss_fn, flat, cfg: PlannerConfig, snap_steps) -> AdamRun:
+    """cfg.steps Adam steps, each an eager step on fresh tensors (the
+    CPU's loop). loss_fn(flat (K, P), tau) -> (K,)."""
+    decay = torch.tensor(tau_decay(cfg), dtype=_F32)
+    m = torch.zeros_like(flat)
+    v = torch.zeros_like(flat)
+    losses, traj = [], {}
+    b1, b2 = torch.tensor(0.9, dtype=_F32), torch.tensor(0.999, dtype=_F32)
+    for i in range(cfg.steps):
+        step = torch.tensor(float(i), dtype=_F32)
+        tau = cfg.tau_start * decay ** step
+        x = flat.detach().requires_grad_(True)
+        loss = loss_fn(x, tau)
+        grad, = torch.autograd.grad(loss.sum(), x)
+        with torch.no_grad():
+            m = 0.9 * m + 0.1 * grad
+            v = 0.999 * v + 0.001 * torch.square(grad)
+            t = step + 1.0
+            mhat = m / (1 - b1 ** t)
+            vhat = v / (1 - b2 ** t)
+            flat = flat - cfg.lr * mhat / (torch.sqrt(vhat) + 1e-8)
+        losses.append(loss.detach())
+        if i in snap_steps:
+            traj[i] = flat
+    losses = torch.stack(losses) if losses \
+        else torch.zeros((0, flat.shape[0]), dtype=_F32)
+    return AdamRun(flat, losses, traj)
+
+
+def adam_step(loss_fn, state: Dict[str, torch.Tensor], cfg: PlannerConfig,
+              consts) -> None:
+    """One Adam step on static state tensors, updated in place: `flat`,
+    `m`, `v` (K, P), `step` (a 0-dim float32 step index) and `loss` (K,).
+    The arithmetic of `eager_loop`'s step, with step and tau as device
+    tensors, so that it can be captured once and replayed."""
+    decay, b1, b2 = consts
+    with torch.profiler.record_function("optimizer.forward"):
+        tau = cfg.tau_start * decay ** state["step"]
+        x = state["flat"].detach().requires_grad_(True)
+        loss = loss_fn(x, tau)
+    with torch.profiler.record_function("optimizer.backward"):
+        grad, = torch.autograd.grad(loss.sum(), x)
+    with torch.profiler.record_function("optimizer.adam"), torch.no_grad():
+        m = 0.9 * state["m"] + 0.1 * grad
+        v = 0.999 * state["v"] + 0.001 * torch.square(grad)
+        t = state["step"] + 1.0
+        mhat = m / (1 - b1 ** t)
+        vhat = v / (1 - b2 ** t)
+        flat = state["flat"] - cfg.lr * mhat / (torch.sqrt(vhat) + 1e-8)
+        state["m"].copy_(m)
+        state["v"].copy_(v)
+        state["flat"].copy_(flat)
+        state["loss"].copy_(loss.detach())
+        state["step"].copy_(t)
+
+
+_WARMUP = 2     # eager steps on a side stream before the capture
+
+
+def adam_loop(loss_fn, flat0, cfg: PlannerConfig, snap_steps,
+              graph: bool = True) -> AdamRun:
+    """cfg.steps Adam steps of `adam_step` on flat0's device. With
+    `graph` (CUDA only) the step is warmed up on a side stream, captured
+    once as a CUDA graph (kept for this call) and replayed; after each
+    step the loss and, at snapshot steps, the parameters are copied into
+    preallocated device buffers. Nothing waits on the device here."""
+    dev = flat0.device
+    consts = tuple(torch.tensor(c, dtype=_F32, device=dev)
+                   for c in (tau_decay(cfg), 0.9, 0.999))
+    state = {"flat": flat0.clone(), "m": torch.zeros_like(flat0),
+             "v": torch.zeros_like(flat0),
+             "step": torch.zeros((), dtype=_F32, device=dev),
+             "loss": torch.zeros(flat0.shape[0], dtype=_F32, device=dev)}
+    losses = torch.zeros((cfg.steps, flat0.shape[0]), dtype=_F32,
+                         device=dev)
+    snaps = {i: torch.empty_like(flat0) for i in snap_steps}
+
+    def step():
+        adam_step(loss_fn, state, cfg, consts)
+    run, replays, capture_s = step, 0, 0.0
+    if graph and cfg.steps > 0:
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
+        t0 = time.perf_counter()
+        graph_, captured = _capture(step, state, flat0)
+        capture_s = time.perf_counter() - t0
+        run, replays = graph_.replay, cfg.steps
+    for i in range(cfg.steps):
+        run()
+        losses[i].copy_(state["loss"])
+        if i in snaps:
+            snaps[i].copy_(state["flat"])
+    if replays:
+        _E.count_replays(captured, replays)
+    return AdamRun(state["flat"], losses, snaps, replays, capture_s)
+
+
+def _capture(step, state, flat0):
+    """Warm `step` up on a side stream (as PyTorch's graph notes ask),
+    put the state back to its start, and capture one step. Returns the
+    graph and the kernel-E launches it holds."""
+    side = torch.cuda.Stream(flat0.device)
+    side.wait_stream(torch.cuda.current_stream(flat0.device))
+    with torch.cuda.stream(side):
+        for _ in range(_WARMUP):
+            step()
+        state["flat"].copy_(flat0)
+        for key in ("m", "v", "step", "loss"):
+            state[key].zero_()
+        before = _E.captured_counts()
+        graph = torch.cuda.CUDAGraph()
+        # other threads (a flush executing another query) may keep using
+        # the card while this one captures
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(flat0.device).wait_stream(side)
+    after = _E.captured_counts()
+    return graph, {k: after[k] - before[k] for k in after}
+
+
+def run_adam(loss_fn, flat0, cfg: PlannerConfig, snap_steps) -> AdamRun:
+    """The optimizer's loop where flat0 lies: `eager_loop` on the CPU,
+    `adam_loop` (a CUDA graph) on CUDA."""
+    if flat0.device.type == "cpu":
+        return eager_loop(loss_fn, flat0, cfg, snap_steps)
+    return adam_loop(loss_fn, flat0, cfg, snap_steps)
+
+
+class Problem(NamedTuple):
+    """One optimize_query problem, built on its device."""
+    pipelines: List[R.PipelineData]
+    sizes: List[int]
+    counts_fn: Callable
+    loss_fn: Callable
+    flat0: torch.Tensor                 # (K, P) restart inits
+    snap_steps: List[int]
+
+
+def setup_problem(pipelines: Sequence[R.PipelineData], gold_membership,
+                  target_recall: float, target_precision: float,
+                  cfg: PlannerConfig,
+                  batch_hint: Optional[R.BatchHint] = None,
+                  groups: Optional[Sequence[R.TreeGroup]] = None,
+                  device=None) -> Problem:
+    """The loss, its counts and the restart inits of `optimize_query`,
+    every tensor on `device` (default: where the pipelines lie)."""
     pipelines = list(pipelines)
+    dev = pipelines[0].scores.device if device is None \
+        else torch.device(device)
+    pipelines = pipelines_on(pipelines, dev)
     sizes = [p.scores.shape[0] for p in pipelines]
-    g = torch.as_tensor(np.asarray(gold_membership), dtype=_F32)
+    g = torch.as_tensor(np.asarray(gold_membership), dtype=_F32).to(dev)
 
     max_cost = sum(
         float(p.costs.sum())
@@ -165,74 +348,84 @@ def optimize_query(pipelines: Sequence[R.PipelineData],
     # gradient, so Adam runs from several starts at once
     grid = [(2.0, 0.3), (2.0, 1.0), (0.5, 0.5), (3.0, 0.1), (0.5, 1.5),
             (4.0, 0.6)][:max(1, cfg.restarts)]
-    flat = torch.stack([flatten_params(
+    flat0 = torch.stack([flatten_params(
         [init_pipeline_params(p, pick0, width) for p in pipelines])
         for pick0, width in grid])                              # (K, P)
-    decay = torch.tensor((cfg.tau_end / cfg.tau_start)
-                         ** (1.0 / max(cfg.steps - 1, 1)), dtype=_F32)
-    snap_every = max(cfg.steps // max(cfg.snapshots, 1), 1)
-    snap_steps = {j * snap_every - 1 for j in range(1, cfg.snapshots)
-                  if 0 <= j * snap_every - 1 < cfg.steps - 1}
+    return Problem(pipelines, sizes, counts_fn, loss_fn, flat0,
+                   snapshot_steps(cfg))
 
-    m = torch.zeros_like(flat)
-    v = torch.zeros_like(flat)
-    losses, traj = [], {}
-    b1, b2 = torch.tensor(0.9, dtype=_F32), torch.tensor(0.999, dtype=_F32)
-    for i in range(cfg.steps):
-        step = torch.tensor(float(i), dtype=_F32)
-        tau = cfg.tau_start * decay ** step
-        x = flat.detach().requires_grad_(True)
-        loss = loss_fn(x, tau)
-        grad, = torch.autograd.grad(loss.sum(), x)
-        with torch.no_grad():
-            m = 0.9 * m + 0.1 * grad
-            v = 0.999 * v + 0.001 * torch.square(grad)
-            t = step + 1.0
-            mhat = m / (1 - b1 ** t)
-            vhat = v / (1 - b2 ** t)
-            flat = flat - cfg.lr * mhat / (torch.sqrt(vhat) + 1e-8)
-        losses.append(loss.detach()[0])
-        if i in snap_steps:
-            traj[i] = flat
+
+def optimize_query(pipelines: Sequence[R.PipelineData],
+                   gold_membership: np.ndarray,
+                   target_recall: float, target_precision: float,
+                   cfg: Optional[PlannerConfig] = None,
+                   batch_hint: Optional[R.BatchHint] = None,
+                   groups: Optional[Sequence[R.TreeGroup]] = None,
+                   device=None) -> OptimizedPlan:
+    """batch_hint activates the batch-size-aware cost model for pipelines
+    carrying fixed per-call costs (see relaxation.BatchHint).
+
+    groups switches the simulation from the linear `query_counts` chain
+    to the grouped `tree_counts` (join trees: side pipelines reset their
+    reach, the pairing cascade's entry mass is the product of the side
+    survivals, and per-group cost weights / hints price each pipeline
+    against its own corpus), so the query-level error budget is
+    allocated across every pipeline of the tree by the same joint
+    gradient relaxation.
+
+    device: where the loop runs (default: where the pipelines lie); on
+    CUDA one Adam step is a CUDA graph. The returned parameters lie on
+    the CPU."""
+    cfg = cfg if cfg is not None else PlannerConfig()
+    prob = setup_problem(pipelines, gold_membership, target_recall,
+                         target_precision, cfg, batch_hint, groups, device)
+    sizes = prob.sizes
+    run = run_adam(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    flat = run.flat
 
     # --- discrete extraction: cheapest feasible candidate wins ---
     K = flat.shape[0]
     cands = [flat[k] for k in range(K)]
     # annealing-path snapshots per restart (conservative -> aggressive)
     for k in range(K):
-        for j in range(1, cfg.snapshots):
-            step_i = j * snap_every - 1
-            if step_i in traj:
-                cands.append(traj[step_i][k])
+        for step_i in prob.snap_steps:
+            cands.append(run.snaps[step_i][k])
     # fallback: gold-only, identical to the reference by construction
     gold_only = []
     for n in sizes:
-        pick = torch.full((n,), -10.0)
+        pick = torch.full((n,), -10.0, device=flat.device)
         pick[-1] = 10.0
-        gold_only.append(R.PipelineParams(pick, torch.zeros(n),
-                                          torch.zeros(n)))
+        gold_only.append(R.PipelineParams(pick, torch.zeros_like(pick),
+                                          torch.zeros_like(pick)))
     cands.append(flatten_params(gold_only))
+    cands = torch.stack(cands)
     with torch.no_grad():
-        c = counts_fn(unflatten_params(torch.stack(cands), sizes), 0.0,
-                      hard=True)
+        c = prob.counts_fn(unflatten_params(cands, sizes), 0.0, hard=True)
         l_rec, l_prec = _bounds(c, cfg.credibility)
+    # the one copy to the host: every candidate with its counts and bounds
+    n_c, P = cands.shape
+    host = torch.cat([torch.stack([c.cost, l_rec, l_prec, c.tp, c.fp, c.fn])
+                      .flatten(), cands.flatten(),
+                      run.losses[:, 0].detach()]).cpu()
+    cost_h, rec_h, prec_h, tp_h, fp_h, fn_h = host[:6 * n_c].view(6, n_c)
+    cands = host[6 * n_c:6 * n_c + n_c * P].view(n_c, P)
+    history = host[6 * n_c + n_c * P:]
     best = None
-    for ci in range(len(cands)):
-        cost = float(c.cost[ci])
-        if float(l_rec[ci]) >= target_recall \
-                and float(l_prec[ci]) >= target_precision:
+    for ci in range(n_c):
+        cost = float(cost_h[ci])
+        if float(rec_h[ci]) >= target_recall \
+                and float(prec_h[ci]) >= target_precision:
             if best is None or cost < best[1]:
                 best = (ci, cost)
     feasible = best is not None
-    ci = best[0] if feasible else len(cands) - 1   # gold-only otherwise
+    ci = best[0] if feasible else n_c - 1   # gold-only otherwise
     cand = unflatten_params(cands[ci], sizes)
     sel = [(torch.sigmoid(p.pick_logits) > 0.5).numpy() for p in cand]
     for s in sel:
         s[-1] = True  # gold always on
     return OptimizedPlan(
-        params=cand, selected=sel, sample_tp=float(c.tp[ci]),
-        sample_fp=float(c.fp[ci]), sample_fn=float(c.fn[ci]),
-        recall_bound=float(l_rec[ci]), precision_bound=float(l_prec[ci]),
-        est_cost=float(c.cost[ci]), feasible=feasible,
-        loss_history=torch.stack(losses).numpy() if losses
-        else np.zeros(0, np.float32))
+        params=cand, selected=sel, sample_tp=float(tp_h[ci]),
+        sample_fp=float(fp_h[ci]), sample_fn=float(fn_h[ci]),
+        recall_bound=float(rec_h[ci]), precision_bound=float(prec_h[ci]),
+        est_cost=float(cost_h[ci]), feasible=feasible,
+        loss_history=history.numpy())

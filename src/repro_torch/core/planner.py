@@ -5,7 +5,9 @@ a PhysicalPlan the streaming runtime can execute over the full dataset.
 Profile/plan helpers live in runtime.plan_utils.
 
 `plan_query` plans one linear pipeline (filters / maps / top-k / agg over
-one corpus). `plan_tree` plans a logical join tree: both side pipelines
+one corpus). Both take `device`, where the gradient optimizer runs
+(default: the CPU; a Session passes its own device, so on the card one
+Adam step is a CUDA graph). `plan_tree` plans a logical join tree: both side pipelines
 and the pairing cascade are profiled on their own samples and optimized
 *jointly* through the grouped relaxation (`relaxation.tree_counts`), so
 the query-level recall/precision budget is allocated across every
@@ -174,7 +176,7 @@ def plan_query(query: Query, items: Sequence[Any], registry: Callable,
                sample_frac: float = 0.15, seed: int = 0,
                reorder: bool = True,
                coalesce: int = DEFAULT_COALESCE,
-               measured=None) -> PhysicalPlan:
+               measured=None, device=None) -> PhysicalPlan:
     """Plan `query` over `items`. `measured` (an optional
     core.profiling.MeasuredBatchStore) activates the measured-batch
     feedback loop: operators with recorded execution telemetry are priced
@@ -192,7 +194,8 @@ def plan_query(query: Query, items: Sequence[Any], registry: Callable,
         query, items, registry, sample_frac, seed)
     _shift_topk_gold(profiles, sem_ops, len(items))
     g = gold_membership(profiles)
-    pipelines = pipelines_data(profiles, measured, sem_ops=sem_ops)
+    pipelines = pipelines_data(profiles, measured, sem_ops=sem_ops,
+                               device=device)
     # batch-size-aware costing: amortize fixed per-call cost over the
     # coalesced flush batches the streaming executor will actually run.
     # The hint width is the static coalesce default unless the measured
@@ -204,7 +207,7 @@ def plan_query(query: Query, items: Sequence[Any], registry: Callable,
     t_rec, t_prec = _effective_targets(query, items)
     plan = optimize_query(pipelines, g,                   # step 3
                           t_rec, t_prec, cfg,
-                          batch_hint=hint)
+                          batch_hint=hint, device=device)
     sel = estimate_selectivities(profiles, plan, sem_ops=sem_ops)
 
     # build stage list (cascades in cost order) for the DP reorderer
@@ -267,7 +270,7 @@ def plan_tree(tree, left_items: Sequence[Any], right_items: Sequence[Any],
               target_recall: float = 0.9, target_precision: float = 0.9,
               sample_frac: float = 0.15, seed: int = 0,
               reorder: bool = True, coalesce: int = DEFAULT_COALESCE,
-              measured=None) -> TreePlan:
+              measured=None, device=None) -> TreePlan:
     """Plan a logical join tree over two corpora.
 
     Both sides and the pairing cascade are profiled on their own samples;
@@ -346,7 +349,7 @@ def plan_tree(tree, left_items: Sequence[Any], right_items: Sequence[Any],
         [_broadcast_profile(p, ii) for p in profiles_l]
         + [_broadcast_profile(p, jj) for p in profiles_r]
         + list(profiles_p),
-        measured, sem_ops=sem_ops_all)
+        measured, sem_ops=sem_ops_all, device=device)
 
     # per-group reach->corpus weights (see relaxation.TreeGroup): a side
     # op's pair-coordinate reach sum overcounts by its pairing degree,
@@ -365,7 +368,8 @@ def plan_tree(tree, left_items: Sequence[Any], right_items: Sequence[Any],
                     R.BatchHint(width, cw["pair"])),
     ]
     plan = optimize_query(pipelines_all, g, target_recall,
-                          target_precision, cfg, groups=groups)
+                          target_precision, cfg, groups=groups,
+                          device=device)
 
     # slice the joint solution back into roles and materialize each
     role_profiles = {"left": profiles_l, "right": profiles_r,

@@ -74,16 +74,20 @@ class BatchHint(NamedTuple):
 
 def _max(x, v: float):
     """jnp.maximum against a constant: at a tie the gradient splits in
-    half, as in JAX (`torch.clamp` would pass all of it)."""
-    return torch.maximum(x, torch.tensor(v, dtype=x.dtype))
+    half, as in JAX (`torch.clamp` would pass all of it). The constant is
+    filled on x's device (a fill, not a host copy: CUDA-graph safe)."""
+    return torch.maximum(x, x.new_full((), v))
 
 
 def _clip(x, lo: float, hi: float):
     """jnp.clip, with JAX's gradient at the bounds."""
-    return torch.minimum(_max(x, lo), torch.tensor(hi, dtype=x.dtype))
+    return torch.minimum(_max(x, lo), x.new_full((), hi))
 
 
 def _clamp_tau(tau):
+    """A temperature floored at 1e-6: a tensor stays a tensor on its own
+    device (the optimizer's annealed tau, read by no host code), a
+    number stays a number."""
     if isinstance(tau, torch.Tensor):
         return torch.clamp(tau, min=1e-6)
     return max(float(tau), 1e-6)
@@ -145,7 +149,9 @@ def simulate_pipeline(params: PipelineParams, data: PipelineData, tau,
         else torch.where(torch.isnan(data.meas_width),
                          torch.full_like(costs, hint.width), data.meas_width)
     width = torch.minimum(cap, base_w)          # (n,) max feasible flush
-    weight = torch.ones(N) if reach_weight is None else reach_weight
+    dev = data.scores.device
+    weight = torch.ones(N, device=dev) if reach_weight is None \
+        else reach_weight
     if hard:
         sigma = (torch.sigmoid(params.pick_logits) > 0.5).float()
         acc_i, rej_i, uns_i = (t.float() for t in hard_decisions(
@@ -161,9 +167,9 @@ def simulate_pipeline(params: PipelineParams, data: PipelineData, tau,
         acc_i = torch.zeros_like(acc_i)
     # gold (last) op: always selected, never unsure, decides at log-odds
     # 0; maps always commit
-    sigma = _set_last(sigma, torch.ones(sigma.shape[:-1]), -1)
+    sigma = _set_last(sigma, sigma.new_ones(sigma.shape[:-1]), -1)
     if data.is_map:
-        gold_acc = torch.ones(N)
+        gold_acc = torch.ones(N, device=dev)
     elif hard:
         gold_acc = (data.scores[-1] > 0.0).float()
     else:
@@ -175,10 +181,10 @@ def simulate_pipeline(params: PipelineParams, data: PipelineData, tau,
     uns_i = _set_last(uns_i, torch.zeros_like(gold_acc), -2)
 
     shape = torch.broadcast_shapes(batch + (N,), weight.shape)
-    accept = torch.zeros(shape)
-    reject = torch.zeros(shape)
-    unsure = torch.ones(shape)
-    cost = torch.zeros(shape)
+    accept = torch.zeros(shape, device=dev)
+    reject = torch.zeros(shape, device=dev)
+    unsure = torch.ones(shape, device=dev)
+    cost = torch.zeros(shape, device=dev)
     decided = []
     for i in range(n):
         s = sigma[..., i, None]
@@ -271,15 +277,17 @@ def tree_counts(pipelines, params_list, gold_membership, groups, tau,
     all three groups on the shared pair coordinates. Parameters may carry
     leading (restart) dimensions, as in `query_counts`.
     """
-    g = torch.as_tensor(gold_membership).float()
+    dev = pipelines[0].scores.device
+    g = torch.as_tensor(gold_membership, device=dev).float()
     N = g.shape[0]
-    p_in = torch.ones(N)
-    p_good = torch.ones(N)
-    total_cost = torch.zeros(N)
-    entry_acc = torch.ones(N)   # product of completed side-group survivals
+    p_in = torch.ones(N, device=dev)
+    p_good = torch.ones(N, device=dev)
+    total_cost = torch.zeros(N, device=dev)
+    entry_acc = torch.ones(N, device=dev)   # completed side-group survivals
     idx = 0
     for grp in groups:
-        survive = torch.ones(N) if grp.kind == "side" else entry_acc
+        survive = torch.ones(N, device=dev) if grp.kind == "side" \
+            else entry_acc
         for _ in range(grp.count):
             data, params = pipelines[idx], params_list[idx]
             idx += 1

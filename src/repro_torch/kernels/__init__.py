@@ -8,6 +8,9 @@
                       sequences (the offline prefill and calibration):
                       a tensor-core body for bfloat16, an FMA body for
                       float32
+  beta_bounds         the planner's Beta credible bounds (kernel E):
+                      betaincinv by bisection and its gradient's betainc
+                      terms, one thread per element
   ref                 plain PyTorch versions of every kernel
   ops                 backend-selecting wrappers (auto | cuda | ref)
   build               nvcc + ctypes loader for csrc/*.cu

@@ -6,6 +6,9 @@ own, with no PyTorch headers, into `lib<name>-<digest>.so`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <build dir>/lib<name>-<digest>.so csrc/<name>.cu
 
+plus the source's own flags (`EXTRA_FLAGS`: kernel E, `beta_bounds.cu`,
+compiles with -fmad=false to keep the plain version's rounding).
+
 The digest hashes the source and the flags, so an edited source builds
 anew and an unchanged one is reused. The build directory is `build/kernels`
 at the root of the checkout (listed in `.gitignore`), or the directory
@@ -32,9 +35,17 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_attention", "expected_attention", "prefill_attention",
-           "prefill_attention_tc")
+           "prefill_attention_tc", "beta_bounds")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# per-source flags: kernel E keeps the plain version's float32 rounding
+# points (no product contracted into a sum, IEEE division and square root)
+EXTRA_FLAGS = {"beta_bounds": ("-fmad=false", "-prec-div=true",
+                               "-prec-sqrt=true", "-ftz=false")}
+
+
+def flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
 
 _lock = threading.Lock()
@@ -61,7 +72,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags(name)).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -81,7 +92,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

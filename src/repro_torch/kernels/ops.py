@@ -15,6 +15,10 @@ plain version.
 
 int8 KV caches (with per-token scales) launch the int8 CUDA kernels,
 which dequantise in the kernel; the plain versions dequantise up front.
+
+The planner's Beta bounds (`beta_incinv`, `beta_incinv_grad_terms`)
+launch kernel E on CUDA tensors; their plain versions are the float32
+recipe `core/bounds.py` has always run.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import os
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import beta_bounds as _bb
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import expected_attention as _ea
 from repro_torch.kernels import prefill_attention as _pa
@@ -37,6 +42,8 @@ KERNELS = {
     "decode_attention_int8": _da.decode_attention_int8,
     "expected_attention_scores": _ea.expected_attention_scores,
     "prefill_attention": _pa.prefill_attention,
+    "beta_incinv": _bb.beta_incinv,
+    "beta_incinv_grad_terms": _bb.beta_incinv_grad_terms,
 }
 
 
@@ -133,3 +140,21 @@ def expected_attention_scores(k_cache, mu, sig2, *, backend=None):
     if use_kernel(backend, k_cache):
         return _ea.expected_attention_scores(k_cache, mu, sig2)
     return ref.expected_attention_scores_ref(k_cache, mu, sig2)
+
+
+def beta_incinv(a, b, q, *, backend=None):
+    """x with I(x; a, b) = q (the regularized incomplete beta), float32,
+    elementwise over the broadcast shape: a 60-step bisection."""
+    if use_kernel(backend, a):
+        return _bb.beta_incinv(a, b, q)
+    return ref.betaincinv_ref(a, b, q)
+
+
+def beta_incinv_grad_terms(a, b, x, *, backend=None):
+    """The terms of betaincinv's gradient at its root x: (fd, pdf), fd
+    the betainc values at (a + ha, b), (a - ha, b), (a, b + hb),
+    (a, b - hb) stacked on a leading axis of 4, pdf the Beta(a, b)
+    density (x clamped to [1e-12, 1], pdf floored at 1e-30)."""
+    if use_kernel(backend, a):
+        return _bb.beta_incinv_grad_terms(a, b, x)
+    return ref.betaincinv_grad_terms_ref(a, b, x)

@@ -8,10 +8,17 @@ wrappers in `kernels/ops.py` use them for tensors on the CPU, and
 `chip_smoke.py` holds each hand kernel against them on the card.
 The `*_twin` functions are no plain versions: each repeats the blocked
 algorithm of one hand kernel (A / B's body, over float32 / bfloat16 or
-int8 K/V; C; both bodies of D), for the tests and `chip_smoke.py`, and
-no wrapper calls them.
+int8 K/V; C; both bodies of D; E's per-element loops), for the tests and
+`chip_smoke.py`, and no wrapper calls them.
+
+The Beta bounds' plain versions (betainc, betaincinv and the terms of its
+gradient, behind kernel E) are the float32 recipe of the JAX package's
+`jax.scipy.special.betainc` and `repro.core.bounds`; `core/bounds.py`
+builds the differentiable bounds on them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -440,3 +447,227 @@ def expected_attention_scores_twin(k_cache, mu, sig2):
         part = part + part[..., lane ^ off]
         off //= 2
     return part[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Beta bounds (kernel E): betainc, betaincinv and its gradient's terms
+# ---------------------------------------------------------------------------
+
+_F32 = torch.float32
+_EPS = torch.finfo(_F32).eps / 2          # Lentz "small" and tolerance
+_TINY = torch.finfo(_F32).tiny * 2
+_CF_ITERS = 200                           # XLA's cap for float32
+_LEVELS = 6                               # bisection levels per betainc call
+BISECT_STEPS = 60
+# Lanczos approximation (g = 7, n = 9), as XLA evaluates lgamma
+_LANCZOS_G = 7.0
+_LANCZOS_BASE = 0.99999999999980993227684700473478
+_LANCZOS = (676.520368121885098567009190444019,
+            -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894,
+            -176.61502916214059906584551354,
+            12.507343278686904814458936853,
+            -0.13857109526572011689554707,
+            9.984369578019570859563e-6,
+            1.50563273514931155834e-7)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=_F32)
+
+
+def _lgamma(x: torch.Tensor) -> torch.Tensor:
+    """log Gamma(x) in float32 by XLA's Lanczos recipe for x >= 0.5 (all
+    the betainc calls here have a, b >= 0.5), `torch.lgamma` below."""
+    z = x - 1.0
+    s = torch.full_like(x, _LANCZOS_BASE)
+    for i, c in enumerate(_LANCZOS):
+        s = s + c / (z + float(i) + 1.0)
+    t = (_LANCZOS_G + 0.5) + z
+    log_t = math.log(_LANCZOS_G + 0.5) + torch.log1p(z / (_LANCZOS_G + 0.5))
+    out = (0.5 * (math.log(2.0) + math.log(math.pi))
+           + (z + 0.5 - t / log_t) * log_t + torch.log(s))
+    return torch.where(x >= 0.5, out, torch.lgamma(x))
+
+
+def betaln(a, b) -> torch.Tensor:
+    """log B(a, b) = lgamma(a) + lgamma(b) - lgamma(a + b), evaluated in
+    float64 (the float32 difference of three large lgammas cancels)."""
+    a64 = _f32(a).double()
+    b64 = _f32(b).double()
+    return (torch.lgamma(a64) + torch.lgamma(b64)
+            - torch.lgamma(a64 + b64)).to(_F32)
+
+
+def _continued_fraction(a, b, x, host_exit: bool = True,
+                        count: bool = False):
+    """Modified Lentz evaluation of the incomplete beta fraction. Each
+    element stops at its own convergence (as under the JAX package's vmap
+    over restarts), so its value does not depend on the other elements of
+    the call. The plain version leaves the loop once every element has
+    converged, which reads a flag on the host; with `host_exit=False` (the
+    twin) it runs every term, the converged elements masked. With `count`
+    it returns (h, the number of terms each element ran)."""
+    one = torch.ones_like(a)
+    small = torch.full_like(a, _EPS)
+    h = small.clone()                     # partial denominator 0 is 0
+    c = h.clone()
+    d = torch.zeros_like(a)
+    active = torch.ones_like(a, dtype=torch.bool)
+    terms = torch.zeros_like(a, dtype=torch.int32) if count else None
+    for it in range(1, _CF_ITERS):
+        if count:
+            terms = terms + active.int()
+        if it == 1:
+            num = one
+        elif it % 2 == 0:
+            m = float((it - 1) // 2)
+            if m == 0:
+                num = -(a + b) * x / (a + one)
+            else:
+                num = -(a + m) * (a + b + m) * x / (
+                    (a + 2 * m) * (a + 2 * m + one))
+        else:
+            m = float((it - 1) // 2)
+            num = m * (b - m) * x / ((a + 2 * m - one) * (a + 2 * m))
+        c_new = one + num / c
+        c_new = torch.where(c_new.abs() < small, small, c_new)
+        d_new = one + num * d
+        d_new = torch.where(d_new.abs() < small, small, d_new)
+        d_new = 1.0 / d_new
+        delta = c_new * d_new
+        h = torch.where(active, h * delta, h)
+        c = torch.where(active, c_new, c)
+        d = torch.where(active, d_new, d)
+        active = active & ((delta - 1.0).abs() >= _EPS)
+        if host_exit and not bool(active.any()):
+            break
+    return (h, terms) if count else h
+
+
+def betainc(a, b, x, host_exit: bool = True, count: bool = False):
+    """Regularized incomplete beta I(x; a, b), elementwise, float32, for
+    a, b > 0 and 0 <= x <= 1. Not differentiable (betaincinv supplies its
+    own gradient). With `count`: (I, continued-fraction terms run)."""
+    a, b, x = torch.broadcast_tensors(_f32(a), _f32(b), _f32(x))
+    with torch.no_grad():
+        rapid = x < (a + 1.0) / (a + b + 2.0)
+        a2 = torch.where(rapid, a, b)
+        b2 = torch.where(rapid, b, a)
+        x2 = torch.where(rapid, x, 1.0 - x)
+        cf = _continued_fraction(a2, b2, x2, host_exit, count)
+        if count:
+            cf, terms = cf
+        lbeta_small_a = _lgamma(b2) - _lgamma(a2 + b2)
+        lbeta = _lgamma(a2) + lbeta_small_a
+        factor = torch.where(
+            a2 < _TINY, torch.exp(torch.log1p(-x2) * b2 - lbeta_small_a),
+            torch.exp(torch.log(x2) * a2 + torch.log1p(-x2) * b2 - lbeta)
+            / a2)
+        out = cf * factor
+        out = torch.where(rapid, out, 1.0 - out)
+        return (out, terms) if count else out
+
+
+def _beta_logpdf(x, a, b):
+    return ((a - 1.0) * torch.log(x) + (b - 1.0) * torch.log1p(-x)
+            - betaln(a, b))
+
+
+def _betaincinv_bisect(a, b, q, iters: int = BISECT_STEPS):
+    """The 60-step bisection of the JAX package, `_LEVELS` steps per
+    betainc call: the 2^L - 1 midpoints the next L steps could visit are
+    computed as the sequential steps compute them (0.5 * (lo + hi) in
+    float32) and scored in one vectorised call, then the L steps walk that
+    tree, so lo and hi follow exactly the sequential path. Once every
+    midpoint equals lo or hi the path is fixed (lo only ever holds points
+    below q, hi points at or above it) and the remaining steps are
+    skipped."""
+    a, b, q = torch.broadcast_tensors(a, b, q)
+    lo = torch.zeros_like(q).reshape(-1, 1)
+    hi = torch.ones_like(q).reshape(-1, 1)
+    af, bf, qf = (t.reshape(-1, 1) for t in (a, b, q))
+    done = 0
+    while done < iters:
+        levels = min(_LEVELS, iters - done)
+        # level k holds the 2^k intervals the first k steps can reach;
+        # node j's children are 2j (not below: hi = mid) and 2j + 1
+        # (below: lo = mid)
+        mids, l_k, h_k = [], lo, hi
+        for _ in range(levels):
+            m_k = 0.5 * (l_k + h_k)
+            mids.append(m_k)
+            l_k = torch.stack([l_k, m_k], -1).flatten(-2)
+            h_k = torch.stack([m_k, h_k], -1).flatten(-2)
+        if bool(((mids[0] == lo) | (mids[0] == hi)).all()):
+            break
+        pts = torch.cat(mids, -1)                    # (n, 2^L - 1)
+        below = betainc(af, bf, pts) < qf
+        node = torch.zeros_like(lo, dtype=torch.long)
+        for k in range(levels):
+            idx = node + ((1 << k) - 1)              # offset of level k
+            mid = pts.gather(1, idx)
+            bel = below.gather(1, idx)
+            lo = torch.where(bel, mid, lo)
+            hi = torch.where(bel, hi, mid)
+            node = 2 * node + bel.long()
+        done += levels
+    return (0.5 * (lo + hi)).reshape(q.shape)
+
+
+def betaincinv_ref(a, b, q) -> torch.Tensor:
+    """x with I(x; a, b) = q, elementwise over the broadcast shape: the
+    plain version of kernel E's first entry."""
+    return _betaincinv_bisect(_f32(a), _f32(b), _f32(q))
+
+
+def grad_steps(a, b):
+    """The central-difference steps of betaincinv's gradient in a and b."""
+    return 1e-4 * torch.clamp(a, min=1.0), 1e-4 * torch.clamp(b, min=1.0)
+
+
+def betaincinv_grad_terms_ref(a, b, x, host_exit: bool = True,
+                              count: bool = False):
+    """The plain version of kernel E's second entry: at x clamped to
+    [1e-12, 1 - 1e-12], the four central-difference evaluations of
+    betainc, at (a + ha, b), (a - ha, b), (a, b + hb), (a, b - hb) stacked
+    on a leading axis, and the Beta(a, b) pdf floored at 1e-30. With
+    `count`, also the continued-fraction terms of each evaluation."""
+    x = torch.clamp(x, 1e-12, 1.0 - 1e-12)
+    pdf = torch.clamp(torch.exp(_beta_logpdf(x, a, b)), min=1e-30)
+    ha, hb = grad_steps(a, b)
+    # the four central-difference evaluations in one call
+    fd = betainc(torch.stack([a + ha, a - ha, a, a]),
+                 torch.stack([b, b, b + hb, b - hb]), x, host_exit, count)
+    return (fd[0], pdf, fd[1]) if count else (fd, pdf)
+
+
+def betaincinv_twin(a, b, q, count: bool = False):
+    """Eager twin of kernel E's first entry: per element, the sequential
+    60-step bisection, each step one betainc whose continued fraction
+    runs every term with the converged elements masked, and the element's
+    own exit once its midpoint equals lo or hi (a mask: an element that
+    left keeps its lo and hi). No host sync. With `count`, also the
+    continued-fraction terms each element's thread runs in all."""
+    a, b, q = torch.broadcast_tensors(_f32(a), _f32(b), _f32(q))
+    lo, hi = torch.zeros_like(q), torch.ones_like(q)
+    live = torch.ones_like(q, dtype=torch.bool)
+    terms = torch.zeros_like(q, dtype=torch.int32)
+    for _ in range(BISECT_STEPS):
+        mid = 0.5 * (lo + hi)
+        live = live & (mid != lo) & (mid != hi)
+        val = betainc(a, b, mid, host_exit=False, count=count)
+        if count:
+            val, t = val
+            terms = terms + torch.where(live, t, 0)
+        below = val < q
+        lo = torch.where(live & below, mid, lo)
+        hi = torch.where(live & ~below, mid, hi)
+    x = 0.5 * (lo + hi)
+    return (x, terms) if count else x
+
+
+def betaincinv_grad_terms_twin(a, b, x, count: bool = False):
+    """Eager twin of kernel E's second entry (the plain terms with the
+    continued fraction's exits as masks)."""
+    return betaincinv_grad_terms_ref(a, b, x, host_exit=False, count=count)

@@ -1,7 +1,7 @@
 """Public plan/profile utilities shared by the planner and the baselines.
 
 The port of `repro.runtime.plan_utils`; the relaxation's inputs are torch
-tensors here (float32, on the CPU: the planner's tensors are tiny).
+tensors here (float32, on the device the planner's optimizer runs on).
 
   gold_membership         — (N,) gold-result-set indicator from profiles
   pipelines_data          — ProfiledPipeline -> relaxation PipelineData
@@ -23,8 +23,8 @@ from repro_torch.core.physical import (PhysicalPlan, PhysicalPlanStage,
 from repro_torch.runtime.kernel import decide, gold_decide
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.float32))
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def gold_plan_for(query: Query, backend) -> PhysicalPlan:
@@ -61,7 +61,8 @@ def gold_membership(profiles: Sequence[ProfiledPipeline]) -> np.ndarray:
 
 
 def pipelines_data(profiles: Sequence[ProfiledPipeline], measured=None,
-                   sem_ops: Sequence = None) -> List[R.PipelineData]:
+                   sem_ops: Sequence = None,
+                   device=None) -> List[R.PipelineData]:
     """Lift numpy profiling results into the relaxation's PipelineData.
 
     Profiles carrying fitted CostCurves split cost into marginal per-tuple
@@ -78,30 +79,32 @@ def pipelines_data(profiles: Sequence[ProfiledPipeline], measured=None,
     `sem_ops` (optional, aligned with `profiles`) marks SemTopK
     pipelines as reject-only (`no_accept`): their non-gold stages may
     terminate hopeless tuples early but never admit — admission is the
-    gold rank cut."""
+    gold rank cut.
+
+    `device` places the tensors (default: the CPU)."""
     out = []
     for li, p in enumerate(profiles):
         no_accept = sem_ops is not None and isinstance(sem_ops[li], SemTopK)
         if p.cost_curves is not None:
-            costs = _f32([c.per_tuple_s for c in p.cost_curves])
-            fixed = _f32([c.fixed_s for c in p.cost_curves])
+            costs = _f32([c.per_tuple_s for c in p.cost_curves], device)
+            fixed = _f32([c.fixed_s for c in p.cost_curves], device)
         else:
-            costs = _f32(p.costs)
+            costs = _f32(p.costs, device)
             fixed = None
         meas_width = None
         if measured is not None and len(measured):
             widths = [measured.mean_batch(name) for name in p.op_names]
             if any(w is not None for w in widths):
                 meas_width = _f32(
-                    [np.nan if w is None else w for w in widths])
+                    [np.nan if w is None else w for w in widths], device)
         out.append(R.PipelineData(
-            scores=_f32(p.scores),
+            scores=_f32(p.scores, device),
             costs=costs,
             is_map=p.is_map,
-            correct=None if p.correct is None else _f32(p.correct),
+            correct=None if p.correct is None else _f32(p.correct, device),
             fixed=fixed,
             batch_cap=None if p.batch_caps is None
-            else _f32(p.batch_caps),
+            else _f32(p.batch_caps, device),
             meas_width=meas_width,
             no_accept=no_accept))
     return out

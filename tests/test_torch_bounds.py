@@ -133,3 +133,69 @@ def test_batched_bounds_match_scalar_calls():
         TB.recall_lower_bound(t, f).backward()
         assert torch.equal(t.grad, tp.grad[i])
         assert torch.equal(f.grad, fn.grad[i])
+
+
+# ---------------------------------------------------------------------------
+# kernel E's twin (kernels/ref.py): the per-element loops of
+# csrc/beta_bounds.cu, exits as masks, no host sync
+# ---------------------------------------------------------------------------
+
+def _wide_grid(seed, n=48):
+    """a, b log-uniform in [0.5, 1e4]: past the planner's counts at both
+    ends (a, b = 1 + a soft count)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(0.5), np.log(1e4)
+    return (np.exp(rng.uniform(lo, hi, n)).astype(np.float32),
+            np.exp(rng.uniform(lo, hi, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("q", [1e-6, 0.05, 0.5, 0.95, 1 - 1e-6])
+def test_e_twin_is_the_plain_bisection_bit_for_bit(q):
+    from repro_torch.kernels import ref
+    a, b = map(torch.from_numpy, _wide_grid(6))
+    qt = torch.tensor(q, dtype=torch.float32)
+    plain = ref.betaincinv_ref(a, b, qt)
+    twin = ref.betaincinv_twin(a, b, qt)
+    assert torch.equal(twin, plain)
+    assert torch.equal(TB.betaincinv(a, b, qt).detach(), plain)
+    fd, pdf = ref.betaincinv_grad_terms_ref(a, b, plain)
+    fd_t, pdf_t = ref.betaincinv_grad_terms_twin(a, b, plain)
+    assert torch.equal(fd_t, fd) and torch.equal(pdf_t, pdf)
+    # both held to the JAX package's bounds at this file's tolerance, on
+    # the range it was stated for (a, b <= 400; the float32 prefactor's
+    # rounding grows with a and b past it)
+    want = np.asarray(JB.betaincinv(jnp.asarray(a.numpy()),
+                                    jnp.asarray(b.numpy()),
+                                    jnp.full(a.shape, q, jnp.float32)))
+    planner = ((a <= 400) & (b <= 400)).numpy()
+    assert planner.sum() >= 10
+    np.testing.assert_allclose(twin.numpy()[planner], want[planner], rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("which", ["recall", "precision"])
+def test_bound_gradients_through_the_twin_terms_match_jax(which):
+    """beta_lower_bound's backward, rebuilt from the twin's terms,
+    equals the port's autograd bit for bit and the JAX package's gradient
+    at this file's tolerance."""
+    from repro_torch.kernels import ref
+    tp = torch.tensor([c[0] for c in COUNTS], requires_grad=True)
+    miss = torch.tensor([c[1] for c in COUNTS], requires_grad=True)
+    fn = TB.recall_lower_bound if which == "recall" \
+        else TB.precision_lower_bound
+    val = fn(tp, miss, 0.95)
+    val.sum().backward()
+    a, b = 1.0 + tp.detach(), 1.0 + miss.detach()
+    fd, pdf = ref.betaincinv_grad_terms_twin(a, b, val.detach())
+    ha, hb = ref.grad_steps(a, b)
+    assert torch.equal(tp.grad, 1.0 * -((fd[0] - fd[1]) / (2 * ha)) / pdf)
+    assert torch.equal(miss.grad, 1.0 * -((fd[2] - fd[3]) / (2 * hb)) / pdf)
+    jfn = JB.recall_lower_bound if which == "recall" \
+        else JB.precision_lower_bound
+    for i, (t, m, _) in enumerate(COUNTS):
+        jgrad = jax.grad(lambda x, y: jfn(x, y, 0.95), argnums=(0, 1))(
+            jnp.float32(t), jnp.float32(m))
+        np.testing.assert_allclose(float(tp.grad[i]), float(jgrad[0]),
+                                   rtol=5e-2, atol=2e-4)
+        np.testing.assert_allclose(float(miss.grad[i]), float(jgrad[1]),
+                                   rtol=5e-2, atol=2e-4)

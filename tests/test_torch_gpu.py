@@ -18,6 +18,9 @@ float32 / bfloat16 and over int8 K/V, C, D's FMA body) are also held to
 their CPU twins' blocked algorithms run on the card, at the same
 tolerances: the two differ only in the order of float32 sums. C's
 scores are held to 2e-5 x max(1, |score|) (float32 sums of dk terms).
+Kernel E (the planner's Beta bounds), the optimizer's CUDA graph and the
+comparison planners on the card state their tolerances where they are
+tested, at the end of this file.
 """
 import pytest
 import torch
@@ -543,3 +546,260 @@ def test_llama8b_prefill_kernel_matches_blocked_attention(gpu):
                                    rtol=0)
     del params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# kernel E (the planner's Beta bounds), the optimizer's CUDA graph, and the
+# comparison planners on the card
+# ---------------------------------------------------------------------------
+
+# E follows the plain version's float32 arithmetic operation by operation
+# (csrc/beta_bounds.cu); what differs is CUDA's expf / logf / log1pf /
+# lgammaf against the CPU's, by an ulp at times, and on the card the plain
+# version's own PyTorch arithmetic (a division by a number is a
+# multiplication by its reciprocal there). Over the planner's range (a, b
+# = 1 + a soft count, up to 401 here) the root is held within 2e-5 (the
+# JAX comparison's tolerance), the backward's betainc terms within 1e-3
+# and the pdf within 1e-3 relative: lgamma(a + b) reaches ~4.6e3 there,
+# whose float32 ulp (4.9e-4) sits in betainc's exponent, so each ulp of
+# difference moves I by ~5e-4 relative (glibc's expf / logf against
+# PyTorch's CPU ones already differ by 1.8e-4 on this range). Past it
+# (a, b to 1e4, lgamma to ~2e5, an ulp of 0.016) only the root is held,
+# within 1e-4.
+E_TOL = dict(x=2e-5, fd=1e-3, pdf=1e-3)
+E_TOL_WIDE_X = 1e-4
+
+
+def _beta_grid(seed, n=256, hi=401.0, lo=1.0):
+    """a, b log-uniform in [lo, hi], on the card."""
+    g = torch.Generator().manual_seed(seed)
+    ab = torch.exp(torch.empty(2, n).uniform_(
+        float(torch.log(torch.tensor(lo))), float(torch.log(torch.tensor(hi))),
+        generator=g))
+    ab = ab.float().cuda()
+    return ab[0].contiguous(), ab[1].contiguous()
+
+
+@pytest.mark.parametrize("q", [1e-6, 0.05, 0.5, 0.95, 1 - 1e-6])
+def test_beta_bounds_kernel_matches_plain_and_twin(gpu, q):
+    from repro_torch.kernels import beta_bounds as BB
+    a, b = _beta_grid(int(q * 1e6) % 1000)
+    qt = torch.full_like(a, q)
+    before = ops.launch_counts()
+    x = ops.beta_incinv(a, b, qt)
+    fd, pdf = ops.beta_incinv_grad_terms(a, b, x)
+    after = ops.launch_counts()
+    assert after["beta_incinv"] == before["beta_incinv"] + 1
+    assert after["beta_incinv_grad_terms"] == \
+        before["beta_incinv_grad_terms"] + 1
+    assert bool(torch.isfinite(x).all()) and bool(((x >= 0) & (x <= 1)).all())
+    cpu = [t.cpu() for t in (a, b, qt, x)]
+    for name, want in (
+            ("plain", ops.beta_incinv(a, b, qt, backend="ref")),
+            ("twin", ref.betaincinv_twin(a, b, qt)),
+            ("cpu", ref.betaincinv_ref(*cpu[:3]).cuda())):
+        torch.testing.assert_close(x, want, atol=E_TOL["x"], rtol=0,
+                                   msg=name)
+    for name, (wfd, wpdf) in (
+            ("plain", ops.beta_incinv_grad_terms(a, b, x, backend="ref")),
+            ("twin", ref.betaincinv_grad_terms_twin(a, b, x)),
+            ("cpu", [t.cuda() for t in ref.betaincinv_grad_terms_ref(
+                cpu[0], cpu[1], cpu[3])])):
+        torch.testing.assert_close(fd, wfd, atol=E_TOL["fd"], rtol=0,
+                                   msg=name)
+        torch.testing.assert_close(pdf, wpdf, rtol=E_TOL["pdf"], atol=0,
+                                   msg=name)
+    assert ops.launch_counts()["beta_incinv"] == after["beta_incinv"]
+    with pytest.raises(ValueError, match="CUDA"):
+        BB.beta_incinv(a.cpu(), b.cpu(), qt.cpu())
+    # a and b from 0.5 to 1e4: the root against the CPU's plain version
+    a, b = _beta_grid(7, lo=0.5, hi=1e4)
+    qt = torch.full_like(a, q)
+    torch.testing.assert_close(
+        ops.beta_incinv(a, b, qt),
+        ref.betaincinv_ref(a.cpu(), b.cpu(), qt.cpu()).cuda(),
+        atol=E_TOL_WIDE_X, rtol=0)
+
+
+def _planner_world(seed=0, N=48):
+    """Two pipelines (a filter and a map, three operators each) with
+    scores made with numpy from a seed."""
+    import numpy as np
+    from repro_torch.core import relaxation as TR
+    rng = np.random.default_rng(seed)
+    gold = rng.normal(size=N) * 2
+    f = np.stack([gold + rng.normal(scale=0.8, size=N),
+                  gold + rng.normal(scale=0.3, size=N),
+                  gold]).astype(np.float32)
+    conf = (np.abs(rng.normal(size=(3, N)))
+            * np.array([[2.0], [3.0], [4.0]])).astype(np.float32)
+    corr = np.stack([rng.uniform(size=N) < 0.8, rng.uniform(size=N) < 0.95,
+                     np.ones(N, bool)]).astype(np.float32)
+    costs = torch.tensor([1e-4, 4e-4, 2e-3])
+    fixed = torch.tensor([2e-3, 3e-3, 6e-3])
+    cap = torch.tensor([128.0, 64.0, 32.0])
+    pipes = [TR.PipelineData(torch.from_numpy(f), costs, False, None, fixed,
+                             cap, torch.tensor([float("nan"), 40.0,
+                                                float("nan")])),
+             TR.PipelineData(torch.from_numpy(conf), costs * 1.5, True,
+                             torch.from_numpy(corr), fixed, cap)]
+    return pipes, (gold > 0).astype(np.float32)
+
+
+def _selections_equal_outside_ties(a, b, tie=5e-3) -> bool:
+    """Equal stage selections, except where both plans' pick
+    probabilities sit within `tie` of 0.5."""
+    for sa, sb, pa, pb in zip(a.selected, b.selected, a.params, b.params):
+        qa = torch.sigmoid(pa.pick_logits.double())
+        qb = torch.sigmoid(pb.pick_logits.double())
+        for i in (sa != sb).nonzero()[0]:
+            if abs(float(qa[i]) - 0.5) >= tie or abs(float(qb[i]) - 0.5) >= tie:
+                return False
+    return True
+
+
+@pytest.mark.parametrize("counts", ["query_counts", "tree_counts"])
+def test_optimizer_graph_matches_eager_card_loop_and_the_cpu(gpu, counts):
+    """One Adam step captured as a CUDA graph and replayed gives the
+    eager step on the card bit for bit (every restart's parameters, every
+    loss, every snapshot); optimize_query on the card against the CPU's
+    selects the same stages outside the 0.5 ties; E's launches are
+    counted per replay (two per step: the bounds and their gradient)."""
+    from repro_torch.core import optimizer as TO
+    from repro_torch.core import relaxation as TR
+    pipes, g = _planner_world()
+    cfg = TO.PlannerConfig(steps=200, restarts=3)
+    kw = dict(batch_hint=TR.BatchHint(64.0, 4.0)) \
+        if counts == "query_counts" else dict(groups=[
+            TR.TreeGroup(1, "side", 0.5, TR.BatchHint(64.0, 0.5)),
+            TR.TreeGroup(1, "pair", 2.0, TR.BatchHint(64.0, 2.0))])
+    prob = TO.setup_problem(pipes, g, 0.7, 0.7, cfg, device="cuda", **kw)
+    assert all(p.scores.is_cuda for p in prob.pipelines)
+    before = ops.launch_counts()["beta_incinv"]
+    graph = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    # warm-up (2 steps) and 200 replays
+    assert ops.launch_counts()["beta_incinv"] - before == 2 + 200
+    assert graph.replays == 200
+    eager = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps,
+                         graph=False)
+    assert eager.replays == 0
+    assert torch.equal(graph.flat, eager.flat)
+    assert torch.equal(graph.losses, eager.losses)
+    for i in prob.snap_steps:
+        assert torch.equal(graph.snaps[i], eager.snaps[i])
+    card = TO.optimize_query(pipes, g, 0.7, 0.7, cfg, device="cuda", **kw)
+    cpu = TO.optimize_query(pipes, g, 0.7, 0.7, cfg, device="cpu", **kw)
+    assert _selections_equal_outside_ties(card, cpu)
+    assert all(p.thr_hi.device.type == "cpu" for p in card.params)
+
+
+def _pinned_wall(op_name: str, n: int) -> float:
+    import re
+    m = re.match(r"(sm|lg)-kv(\d\d)(i8)?$", op_name)
+    if m is None:
+        return 1e-4 + 1e-5 * n
+    size = {"sm": 1.0, "lg": 3.0}[m.group(1)]
+    keep = 1.0 - int(m.group(2)) / 100.0
+    return 2e-3 * size + 1e-4 * size * (0.2 + keep) * n
+
+
+def test_baselines_plan_on_the_card_as_on_the_cpu(gpu, tmp_path,
+                                                  monkeypatch):
+    """Each comparison planner over a planted world, on the card and on
+    the CPU over the same stored profiles, both profiling clocks pinned:
+    the same stages (the gradient ablations outside 0.5 ties), thresholds
+    within 1e-4 (fixed rules), 0.05 (the local ablation) or 0.1 (the
+    independent one: its single start carries E's rounding against the
+    CPU's through the whole trajectory; 0.077 on this world's sm-kv50
+    reject threshold, as 0.067 against the JAX package in
+    tests/test_torch_baselines.py)."""
+    import repro_torch.runtime.executor as tex
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.logical import Query, SemFilter, SemMap
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.operators import make_registry
+    real = tex.run_operator
+
+    def pinned(backend, op, op_name, items):
+        out = real(backend, op, op_name, items)
+        out.wall_s = _pinned_wall(op_name, len(items))
+        return out
+    monkeypatch.setattr(tex, "run_operator", pinned)
+    ds = syn.make_dataset("baselines", 100, seed=5)
+    regs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(CacheStore(str(tmp_path)), device=dev)
+        for size in ("sm", "lg"):
+            mcfg = syn.planted_config(size)
+            eng.register_model(size, mcfg, syn.make_planted_params(
+                mcfg, seed=1, device=dev))
+            if dev == "cuda":
+                eng.build_profiles(size, ds.items, ratios=(0.0, 0.5),
+                                   prefill_batch=40)
+        regs[dev] = make_registry(eng, sm_ratios=(0.5, 0.0),
+                                  lg_ratios=(0.5,))
+    cfg = PlannerConfig(steps=150, restarts=2, snapshots=3)
+    query = Query([SemFilter("f1", 1), SemMap("extract v3", 3)], 0.6, 0.6)
+    sizes = [len(regs["cpu"](op)) for op in query.semantic_ops]
+    calls = []          # what the recorded functions saw, per call
+
+    def record(name):
+        real_fn = getattr(BL, name)
+
+        def wrapped(*args, **kwargs):
+            out = real_fn(*args, **kwargs)
+            # a reference only: inside a captured step nothing may sync
+            calls.append(out if name == "optimize_query" else args[0])
+            return out
+        monkeypatch.setattr(BL, name, wrapped)
+    record("optimize_query")
+    record("unflatten_params")
+
+    def chosen_picks(fn):
+        """Per pipeline, the pick logits the planner selected from: the
+        optimizer's plan per pipeline (local), the last flat vector
+        (independent)."""
+        if fn is BL.plan_stretto_local:
+            return [c.params[0].pick_logits for c in calls]
+        if fn is BL.plan_stretto_independent:
+            flat, off, out = calls[-1].reshape(-1).cpu(), 0, []
+            for n in sizes:
+                out.append(flat[off:off + n])
+                off += 3 * n
+            return out
+        return []
+    for fn, kw, tol in ((BL.plan_lotus, {}, 1e-4),
+                        (BL.plan_pareto_cascades, {}, 1e-4),
+                        (BL.plan_stretto_local, {"cfg": cfg}, 0.05),
+                        (BL.plan_stretto_independent, {"cfg": cfg}, 0.1)):
+        plans, chosen = {}, {}
+        for dev in ("cuda", "cpu"):
+            calls.clear()
+            plans[dev] = fn(query, ds.items, regs[dev], sample_frac=0.3,
+                            device=dev, **kw)
+            chosen[dev] = chosen_picks(fn)
+        stages = {dev: {(s.logical_idx, s.op_name): s
+                        for s in p.stages} for dev, p in plans.items()}
+        tied = set()
+        for li, (pa, pb) in enumerate(zip(chosen["cuda"], chosen["cpu"])):
+            qa = torch.sigmoid(pa.double().cpu())
+            qb = torch.sigmoid(pb.double().cpu())
+            names = [o.name for o in regs["cpu"](query.semantic_ops[li])]
+            for i in range(len(names) - 1):
+                if bool(qa[i] > 0.5) != bool(qb[i] > 0.5):
+                    assert abs(float(qa[i]) - 0.5) < 5e-3 \
+                        and abs(float(qb[i]) - 0.5) < 5e-3, \
+                        (fn.__name__, li, names[i], qa, qb)
+                    tied.add((li, names[i]))
+        assert set(stages["cuda"]) ^ set(stages["cpu"]) <= tied, fn.__name__
+        if not tied:
+            assert [(s.logical_idx, s.op_name) for s in
+                    plans["cuda"].stages] == \
+                [(s.logical_idx, s.op_name) for s in plans["cpu"].stages]
+        for k in set(stages["cuda"]) & set(stages["cpu"]):
+            a, b = stages["cuda"][k], stages["cpu"][k]
+            for x, y in ((a.thr_hi, b.thr_hi), (a.thr_lo, b.thr_lo)):
+                assert x == y or abs(x - y) < tol, (fn.__name__, k, x, y)

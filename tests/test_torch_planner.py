@@ -341,3 +341,49 @@ def test_plan_query_matches_jax_under_pinned_clock(monkeypatch, tmp_path):
         assert a.cost == pytest.approx(b.cost, rel=1e-5)
     assert tp.feasible == jp.feasible
     assert tp.est_cost == pytest.approx(jp.est_cost, rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the step the card captures as a CUDA graph, eagerly on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("counts", ["query_counts", "tree_counts"])
+def test_captured_adam_step_is_the_eager_loop_bit_for_bit(world, counts):
+    """`adam_loop(graph=False)` runs `adam_step`, the step a CUDA device
+    captures (step and tau as tensors, state updated in place, losses
+    and snapshots copied into buffers); over a full 200-step run it
+    gives the CPU's `eager_loop` bit for bit: every restart's parameters,
+    every loss and every snapshot (`test_optimize_query_matches_jax`
+    holds that loop to the JAX package)."""
+    _, g, _, tp = world
+    cfg = TO.PlannerConfig(steps=200, restarts=2)
+    if counts == "tree_counts":
+        groups = [TR.TreeGroup(1, "side", 0.5, TR.BatchHint(64.0, 0.5)),
+                  TR.TreeGroup(1, "pair", 2.0, TR.BatchHint(64.0, 2.0))]
+        prob = TO.setup_problem(tp, g, 0.7, 0.7, cfg, groups=groups)
+    else:
+        prob = TO.setup_problem(tp, g, 0.7, 0.7, cfg,
+                                batch_hint=TR.BatchHint(64.0, 4.0))
+    eager = TO.eager_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    step = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps,
+                        graph=False)
+    assert step.replays == 0 and eager.losses.shape == (200, 2)
+    assert torch.equal(step.flat, eager.flat)
+    assert torch.equal(step.losses, eager.losses)
+    assert sorted(step.snaps) == sorted(eager.snaps) == prob.snap_steps
+    for i in prob.snap_steps:
+        assert torch.equal(step.snaps[i], eager.snaps[i])
+
+
+def test_optimize_query_places_its_problem_on_the_device(world):
+    """setup_problem moves every tensor to the requested device; on the
+    CPU `optimize_query` runs the eager loop and returns host tensors."""
+    _, g, _, tp = world
+    cfg = TO.PlannerConfig(steps=5, restarts=2)
+    prob = TO.setup_problem(tp, g, 0.7, 0.7, cfg, device="cpu")
+    assert prob.flat0.shape == (2, 18) and prob.flat0.device.type == "cpu"
+    assert all(p.scores.device.type == "cpu" for p in prob.pipelines)
+    with pytest.raises(ValueError, match="CUDA"):
+        TO.adam_loop(prob.loss_fn, prob.flat0, cfg, [], graph=True)
+    plan = TO.optimize_query(tp, g, 0.7, 0.7, cfg, device="cpu")
+    assert all(p.thr_hi.device.type == "cpu" for p in plan.params)
