@@ -1579,11 +1579,26 @@ def phase_session_join_llama8b(torch, params):
 # the planner on the card: kernel E and the optimizer's CUDA graph
 # ---------------------------------------------------------------------------
 
-E_TOL = dict(x=2e-5, fd=1e-3, pdf=1e-3)   # planner range (tests/test_torch_gpu)
+# kernel E on the Sessions' real inputs (a, b = 1 + soft counts of at
+# most 50 sample tuples, q = 0.05), against the plain version on the card,
+# the twin and the CPU: the root; the backward's four betainc terms (max
+# abs); dI/da, dI/db formed from them (max error over max size: a kernel
+# that dropped the step reads 1, one that swapped the signs 2, and the
+# check must reject both); the pdf (relative). scripts/beta_bounds_errors.py
+# read a, b in [1, 60] at q <= 0.05: terms 3.1e-6, gradient 3.2 %, pdf
+# 7.6e-6 (tests/test_torch_gpu.py holds E over that grid and wider ones).
+E_TOL = dict(x=2e-5, fd=1e-5, grad=0.15, pdf=1e-4)
 E_TOL_WIDE_X = 1e-4                      # a, b to 1e4: the root only
 FMA_LATENCY_CYCLES = 4                   # H100: a dependent float32 FMA
 BOOST_HZ = 1.98e9                        # H100 SXM maximum SM clock
 TIE = 5e-3                               # optimizer ties (ROADMAP queue 3)
+
+
+def _on_cpu(pipelines):
+    """The optimizer's pipelines with every tensor copied to the host (the
+    optimizer runs where its pipelines lie)."""
+    return [p._replace(**{f: v.cpu() for f, v in p._asdict().items()
+                          if hasattr(v, "cpu")}) for p in pipelines]
 
 
 def _same_run(torch, a, b) -> bool:
@@ -1738,30 +1753,22 @@ def _e_rows(torch, flush, rec, label, main):
         if bwd is None:
             continue
         a, b, xb = (t.contiguous() for t in bwd)
-        fd, pdf = BB.beta_incinv_grad_terms(a, b, xb)
-        checks = [ops.beta_incinv_grad_terms(a, b, xb, backend="ref"),
-                  ref.betaincinv_grad_terms_twin(a, b, xb),
-                  [t.cuda() for t in ref.betaincinv_grad_terms_ref(
-                      a.cpu(), b.cpu(), xb.cpu())]]
+        err = _e_terms_check(torch, a, b, xb)
         _, _, bwd_terms = ref.betaincinv_grad_terms_twin(
             a.cpu(), b.cpu(), xb.cpu(), count=True)
-        errs = [(float((fd - w[0]).abs().max()),
-                 float(((pdf - w[1]).abs() / w[1].abs()).max()))
-                for w in checks]
         row = dict(kernel="beta_incinv_grad_terms", shape=f"{label}-{shape}",
-                   n=a.numel(), max_abs_err=errs[0][0],
-                   max_abs_err_vs_twin=errs[1][0],
-                   max_abs_err_vs_cpu=errs[2][0],
-                   pdf_max_rel_err=max(e[1] for e in errs),
+                   n=a.numel(), max_abs_err=err["fd_err_vs_plain"],
+                   max_abs_err_vs_twin=err["fd_err_vs_twin"],
+                   max_abs_err_vs_cpu=err["fd_err_vs_cpu"],
+                   **{k: v for k, v in err.items()
+                      if k.startswith(("grad_", "pdf_"))},
                    cf_terms_max=int(bwd_terms.max()),
                    kernel_ms=time_ms(torch, lambda: BB.beta_incinv_grad_terms(
                        a, b, xb), flush),
                    plain_ms=time_ms(torch, lambda: ops.beta_incinv_grad_terms(
                        a, b, xb, backend="ref"), flush, iters=5),
                    bound_ms=_e_bound_ms(bwd_terms), bound_by="operations",
-                   library_ms=None, main_path_shape=is_main)
-        row["ok"] = (max(e[0] for e in errs) <= E_TOL["fd"]
-                     and row["pdf_max_rel_err"] <= E_TOL["pdf"])
+                   library_ms=None, main_path_shape=is_main, ok=err["ok"])
         rows["beta_incinv_grad_terms"].append(row)
         emit("kernel", **row)
         if not row["ok"]:
@@ -1770,10 +1777,54 @@ def _e_rows(torch, flush, rec, label, main):
     return rows
 
 
+def _grad_err(got, want) -> float:
+    """max |got - want| over max |want|, for dI/da and for dI/db: the
+    larger."""
+    return max(float((got[i] - want[i]).abs().max()
+                     / want[i].abs().max().clamp(min=1e-30))
+               for i in range(2))
+
+
+def _e_terms_check(torch, a, b, x) -> dict:
+    """E's gradient terms at (a, b, x) against the plain version on the
+    card, the twin and the CPU's plain version, and what a kernel that
+    dropped the central-difference step (all four terms equal) or swapped
+    its signs would read on the gradient measure; ok under E_TOL only if
+    the check rejects both."""
+    from repro_torch.kernels import beta_bounds as BB
+    from repro_torch.kernels import ops, ref
+    fd, pdf = BB.beta_incinv_grad_terms(a, b, x)
+    want = {"plain": ops.beta_incinv_grad_terms(a, b, x, backend="ref"),
+            "twin": ref.betaincinv_grad_terms_twin(a, b, x),
+            "cpu": [t.cuda() for t in ref.betaincinv_grad_terms_ref(
+                a.cpu(), b.cpu(), x.cpu())]}
+    grad = ref.fd_grads(fd, a, b)
+    out = {}
+    for k, (wfd, wpdf) in want.items():
+        out[f"fd_err_vs_{k}"] = float((fd - wfd).abs().max())
+        out[f"grad_err_vs_{k}"] = _grad_err(grad, ref.fd_grads(wfd, a, b))
+        out[f"pdf_rel_err_vs_{k}"] = float(((pdf - wpdf).abs()
+                                            / wpdf.abs()).max())
+    plain = ref.fd_grads(want["plain"][0], a, b)
+    out["grad_err_zero_step"] = _grad_err(
+        ref.fd_grads(fd[[0, 0, 2, 2]], a, b), plain)
+    out["grad_err_swapped"] = _grad_err(
+        ref.fd_grads(fd[[1, 0, 3, 2]], a, b), plain)
+    out["ok"] = (max(out[f"fd_err_vs_{k}"] for k in want) <= E_TOL["fd"]
+                 and max(out[f"grad_err_vs_{k}"] for k in want)
+                 <= E_TOL["grad"]
+                 and max(out[f"pdf_rel_err_vs_{k}"] for k in want)
+                 <= E_TOL["pdf"]
+                 and min(out["grad_err_zero_step"],
+                         out["grad_err_swapped"]) > E_TOL["grad"])
+    return out
+
+
 def _e_grid_check(torch, rec):
-    """E over every (a, b, q) the eager card loop gave the bounds (the
-    Session path's real inputs), and a, b log-uniform in [0.5, 1e4] at q
-    near 0, 0.5 and 1, against the plain version (card and CPU) and the
+    """E over every (a, b, q) the eager card loop gave the bounds and
+    every (a, b, x) it gave their gradient (the Session path's real
+    inputs), and the root over a, b log-uniform in [0.5, 1e4] at q near
+    0, 0.5 and 1, against the plain version (card and CPU) and the
     twin."""
     from repro_torch.kernels import beta_bounds as BB
     from repro_torch.kernels import ops, ref
@@ -1796,9 +1847,12 @@ def _e_grid_check(torch, rec):
         wide = max(wide, float((got - ref.betaincinv_ref(wa, wb, wq))
                                .abs().max()))
     errs["wide_vs_cpu"] = wide
+    terms = _e_terms_check(torch, *(torch.cat([r[i].reshape(-1)
+                                               for r in rec["bwd"]])
+                                    for i in range(3)))
     ok = max(errs[k] for k in errs if k != "wide_vs_cpu") <= E_TOL["x"] \
-        and wide <= E_TOL_WIDE_X
-    return dict(real_elements=a.numel(),
+        and wide <= E_TOL_WIDE_X and terms["ok"]
+    return dict(real_elements=a.numel(), real_terms=terms,
                 real_a_range=[float(a.min()), float(a.max())],
                 real_b_range=[float(b.min()), float(b.max())],
                 q=sorted(set(q.cpu().tolist())), **errs, ok=ok)
@@ -1821,7 +1875,8 @@ def phase_planner(torch, problems):
         cfg = args[4]
         row = dict(steps=cfg.steps, restarts=cfg.restarts)
         plans = {}
-        for name, extra in (("card_graph", {}), ("cpu", {"device": "cpu"})):
+        for name, on in (("card_graph", args),
+                         ("cpu", (_on_cpu(args[0]),) + tuple(args[1:]))):
             # the card plan's last call to E outside the capture is the
             # extraction's
             rec, restore = _record_e(torch, ops) if name == "card_graph" \
@@ -1832,7 +1887,7 @@ def phase_planner(torch, problems):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                plans[name] = TO.optimize_query(*args, **{**kw, **extra})
+                plans[name] = TO.optimize_query(*on, **kw)
                 torch.cuda.synchronize()
             finally:
                 restore()
@@ -1840,6 +1895,12 @@ def phase_planner(torch, problems):
             c = ops.launch_counts()
             row[f"e_launches_{name}"] = [c["beta_incinv"],
                                          c["beta_incinv_grad_terms"]]
+        # the graph plan: two warm-up steps, one launch of each entry per
+        # replay, and the extraction's bounds
+        if row["e_launches_card_graph"] != [cfg.steps + 3, cfg.steps + 2]:
+            die("planner", f"{label}: E's launches per graph plan "
+                           f"{row['e_launches_card_graph']}, not "
+                           f"{[cfg.steps + 3, cfg.steps + 2]}")
         ties, diff = _tie_check(torch, plans["card_graph"], plans["cpu"])
         row.update(selected_card=[s_.tolist() for s_ in
                                   plans["card_graph"].selected],

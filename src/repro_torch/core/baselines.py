@@ -17,7 +17,7 @@ same planning/execution stack as Stretto (the port of
 Every planner takes `device`, where its tensor work runs (default: the
 CPU): Pareto-Cascades' hard counts over every configuration are one
 batched `query_counts` there (the reference's jit(vmap)); both ablations
-run the optimizer's loop there (`optimizer.run_adam`: a CUDA graph per
+run the optimizer's loop there (`optimizer.adam_loop`: a CUDA graph per
 Adam step on the card). Lotus is host arithmetic over the profiled
 sample and takes `device` only for a uniform call.
 """
@@ -33,9 +33,9 @@ import torch
 from repro_torch.core import bounds as B
 from repro_torch.core import relaxation as R
 from repro_torch.core.logical import Query, pull_up_semantic
-from repro_torch.core.optimizer import (PlannerConfig, flatten_params,
-                                        init_pipeline_params, optimize_query,
-                                        run_adam, unflatten_params)
+from repro_torch.core.optimizer import (PlannerConfig, adam_loop,
+                                        flatten_params, init_pipeline_params,
+                                        optimize_query, unflatten_params)
 from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
 from repro_torch.core.profiling import profile_query
 from repro_torch.runtime.plan_utils import gold_membership, pipelines_data
@@ -332,7 +332,7 @@ def plan_stretto_independent(query: Query, items, registry,
 
     flat0 = flatten_params([init_pipeline_params(p, 2.0, 0.5)
                             for p in pipelines])[None]          # (1, P)
-    run = run_adam(lambda flat, tau: loss_fn(flat, tau)[0], flat0, cfg, [])
+    run = adam_loop(lambda flat, tau: loss_fn(flat, tau)[0], flat0, cfg, [])
     with torch.no_grad():
         _, aux = loss_fn(run.flat, 0.0)
     rb, pb, cost = (float(x) for x in torch.cat(aux).cpu())

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (_betaincinv_bisect, _f32,  # noqa: F401
-                                     betainc, betaln, grad_steps)
+                                     betainc, betaln, fd_grads)
 
 
 class _BetaIncInv(torch.autograd.Function):
@@ -53,9 +53,7 @@ class _BetaIncInv(torch.autograd.Function):
         a, b, q, x = ctx.saved_tensors
         with torch.no_grad():
             fd, pdf = ops.beta_incinv_grad_terms(a, b, x)
-            ha, hb = grad_steps(a, b)
-            dIda = (fd[0] - fd[1]) / (2 * ha)
-            dIdb = (fd[2] - fd[3]) / (2 * hb)
+            dIda, dIdb = fd_grads(fd, a, b)
             grads = (g * -dIda / pdf, g * -dIdb / pdf, g / pdf)
         return tuple(
             _sum_to(gr, t.shape) if need else None

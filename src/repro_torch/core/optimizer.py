@@ -22,12 +22,12 @@ parameters). The Adam arithmetic, the init grid, the tau schedule and the
 snapshot extraction are the reference's.
 
 Where the loop runs follows the reference's jit, which runs on its
-default device: `optimize_query(device=...)` (default: where the
-pipelines' tensors lie) puts every tensor of the problem there.
-  CPU   `eager_loop`: one eager Adam step after another.
-  CUDA  `adam_loop`: one Adam step (forward through the relaxation, the
-        bounds through kernel E, `torch.autograd.grad`, Adam) written
-        over static state tensors (`adam_step`), captured once as a
+default device: the device the pipelines' tensors lie on
+(`runtime.plan_utils.pipelines_data(device=)` places them). `adam_loop`
+writes one Adam step (forward through the relaxation and the bounds,
+`torch.autograd.grad`, Adam) over static state tensors (`adam_step`):
+  CPU   the step runs eagerly, one step after another.
+  CUDA  the bounds run kernel E; the step is captured once as a
         `torch.cuda.CUDAGraph` and replayed `cfg.steps` times; step and
         tau live on the device, losses and snapshots are copied into
         preallocated buffers, and nothing reads the device until the
@@ -35,7 +35,7 @@ pipelines' tensors lie) puts every tensor of the problem there.
         `adam_loop(graph=False)` runs the same step eagerly (bit for bit
         the graph's result).
 The Exp 3 baselines (`core/baselines.py`) run their own loss through the
-same loop (`run_adam`).
+same loop.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.core import bounds as B
 from repro_torch.core import relaxation as R
-from repro_torch.kernels import beta_bounds as _E
+from repro_torch.kernels import ops
 
 _F32 = torch.float32
 
@@ -134,16 +134,6 @@ def _bounds(c: R.QueryCounts, credibility: float):
     return both[0], both[1]
 
 
-def pipelines_on(pipelines: Sequence[R.PipelineData], device
-                 ) -> List[R.PipelineData]:
-    """The pipelines with every tensor on `device`."""
-    fields = ("scores", "costs", "correct", "fixed", "batch_cap",
-              "meas_width")
-    return [p._replace(**{f: getattr(p, f).to(device) for f in fields
-                          if getattr(p, f) is not None})
-            for p in pipelines]
-
-
 def tau_decay(cfg: PlannerConfig) -> float:
     """The per-step factor of the exponential temperature schedule."""
     return (cfg.tau_end / cfg.tau_start) ** (1.0 / max(cfg.steps - 1, 1))
@@ -165,41 +155,12 @@ class AdamRun(NamedTuple):
     capture_s: float = 0.0              # host s for warm-up and capture
 
 
-def eager_loop(loss_fn, flat, cfg: PlannerConfig, snap_steps) -> AdamRun:
-    """cfg.steps Adam steps, each an eager step on fresh tensors (the
-    CPU's loop). loss_fn(flat (K, P), tau) -> (K,)."""
-    decay = torch.tensor(tau_decay(cfg), dtype=_F32)
-    m = torch.zeros_like(flat)
-    v = torch.zeros_like(flat)
-    losses, traj = [], {}
-    b1, b2 = torch.tensor(0.9, dtype=_F32), torch.tensor(0.999, dtype=_F32)
-    for i in range(cfg.steps):
-        step = torch.tensor(float(i), dtype=_F32)
-        tau = cfg.tau_start * decay ** step
-        x = flat.detach().requires_grad_(True)
-        loss = loss_fn(x, tau)
-        grad, = torch.autograd.grad(loss.sum(), x)
-        with torch.no_grad():
-            m = 0.9 * m + 0.1 * grad
-            v = 0.999 * v + 0.001 * torch.square(grad)
-            t = step + 1.0
-            mhat = m / (1 - b1 ** t)
-            vhat = v / (1 - b2 ** t)
-            flat = flat - cfg.lr * mhat / (torch.sqrt(vhat) + 1e-8)
-        losses.append(loss.detach())
-        if i in snap_steps:
-            traj[i] = flat
-    losses = torch.stack(losses) if losses \
-        else torch.zeros((0, flat.shape[0]), dtype=_F32)
-    return AdamRun(flat, losses, traj)
-
-
 def adam_step(loss_fn, state: Dict[str, torch.Tensor], cfg: PlannerConfig,
               consts) -> None:
     """One Adam step on static state tensors, updated in place: `flat`,
     `m`, `v` (K, P), `step` (a 0-dim float32 step index) and `loss` (K,).
-    The arithmetic of `eager_loop`'s step, with step and tau as device
-    tensors, so that it can be captured once and replayed."""
+    Step and tau are device tensors, so that the step can be captured
+    once and replayed. loss_fn(flat (K, P), tau) -> (K,)."""
     decay, b1, b2 = consts
     with torch.profiler.record_function("optimizer.forward"):
         tau = cfg.tau_start * decay ** state["step"]
@@ -221,17 +182,17 @@ def adam_step(loss_fn, state: Dict[str, torch.Tensor], cfg: PlannerConfig,
         state["step"].copy_(t)
 
 
-_WARMUP = 2     # eager steps on a side stream before the capture
-
-
 def adam_loop(loss_fn, flat0, cfg: PlannerConfig, snap_steps,
-              graph: bool = True) -> AdamRun:
-    """cfg.steps Adam steps of `adam_step` on flat0's device. With
-    `graph` (CUDA only) the step is warmed up on a side stream, captured
-    once as a CUDA graph (kept for this call) and replayed; after each
+              graph: Optional[bool] = None) -> AdamRun:
+    """cfg.steps Adam steps of `adam_step` on flat0's device; after each
     step the loss and, at snapshot steps, the parameters are copied into
-    preallocated device buffers. Nothing waits on the device here."""
+    preallocated buffers, and nothing waits on the device here. With
+    `graph` (default: on CUDA) the step is captured once as a CUDA graph
+    (`ops.capture_graph`, kept for this call) and replayed; without it
+    the step runs eagerly (the CPU's loop; on the card, bit for bit the
+    graph's result)."""
     dev = flat0.device
+    graph = dev.type == "cuda" if graph is None else graph
     consts = tuple(torch.tensor(c, dtype=_F32, device=dev)
                    for c in (tau_decay(cfg), 0.9, 0.999))
     state = {"flat": flat0.clone(), "m": torch.zeros_like(flat0),
@@ -244,56 +205,25 @@ def adam_loop(loss_fn, flat0, cfg: PlannerConfig, snap_steps,
 
     def step():
         adam_step(loss_fn, state, cfg, consts)
+
+    def reset():
+        state["flat"].copy_(flat0)
+        for key in ("m", "v", "step", "loss"):
+            state[key].zero_()
     run, replays, capture_s = step, 0, 0.0
     if graph and cfg.steps > 0:
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
         t0 = time.perf_counter()
-        graph_, captured = _capture(step, state, flat0)
+        run = ops.capture_graph(step, reset, dev)
         capture_s = time.perf_counter() - t0
-        run, replays = graph_.replay, cfg.steps
+        replays = cfg.steps
     for i in range(cfg.steps):
         run()
         losses[i].copy_(state["loss"])
         if i in snaps:
             snaps[i].copy_(state["flat"])
-    if replays:
-        _E.count_replays(captured, replays)
     return AdamRun(state["flat"], losses, snaps, replays, capture_s)
-
-
-def _capture(step, state, flat0):
-    """Warm `step` up on a side stream (as PyTorch's graph notes ask),
-    put the state back to its start, and capture one step. Returns the
-    graph and the kernel-E launches it holds."""
-    side = torch.cuda.Stream(flat0.device)
-    side.wait_stream(torch.cuda.current_stream(flat0.device))
-    with torch.cuda.stream(side):
-        for _ in range(_WARMUP):
-            step()
-        state["flat"].copy_(flat0)
-        for key in ("m", "v", "step", "loss"):
-            state[key].zero_()
-        before = _E.captured_counts()
-        graph = torch.cuda.CUDAGraph()
-        # other threads (a flush executing another query) may keep using
-        # the card while this one captures
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            step()
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(flat0.device).wait_stream(side)
-    after = _E.captured_counts()
-    return graph, {k: after[k] - before[k] for k in after}
-
-
-def run_adam(loss_fn, flat0, cfg: PlannerConfig, snap_steps) -> AdamRun:
-    """The optimizer's loop where flat0 lies: `eager_loop` on the CPU,
-    `adam_loop` (a CUDA graph) on CUDA."""
-    if flat0.device.type == "cpu":
-        return eager_loop(loss_fn, flat0, cfg, snap_steps)
-    return adam_loop(loss_fn, flat0, cfg, snap_steps)
 
 
 class Problem(NamedTuple):
@@ -313,11 +243,17 @@ def setup_problem(pipelines: Sequence[R.PipelineData], gold_membership,
                   groups: Optional[Sequence[R.TreeGroup]] = None,
                   device=None) -> Problem:
     """The loss, its counts and the restart inits of `optimize_query`,
-    every tensor on `device` (default: where the pipelines lie)."""
+    every tensor on the pipelines' device. `device`, where given, must be
+    that device."""
     pipelines = list(pipelines)
-    dev = pipelines[0].scores.device if device is None \
-        else torch.device(device)
-    pipelines = pipelines_on(pipelines, dev)
+    dev = pipelines[0].scores.device
+    # an empty tensor resolves "cuda" to the current card
+    if device is not None and torch.empty(0, device=device).device != dev \
+            or any(p.scores.device != dev for p in pipelines):
+        raise ValueError(
+            f"the pipelines lie on {[str(p.scores.device) for p in pipelines]}"
+            f", not {device if device is not None else dev}: place them "
+            f"with runtime.plan_utils.pipelines_data(device=)")
     sizes = [p.scores.shape[0] for p in pipelines]
     g = torch.as_tensor(np.asarray(gold_membership), dtype=_F32).to(dev)
 
@@ -373,14 +309,14 @@ def optimize_query(pipelines: Sequence[R.PipelineData],
     allocated across every pipeline of the tree by the same joint
     gradient relaxation.
 
-    device: where the loop runs (default: where the pipelines lie); on
-    CUDA one Adam step is a CUDA graph. The returned parameters lie on
-    the CPU."""
+    The loop runs where the pipelines lie (`device`, if given, must be
+    that device); on CUDA one Adam step is a CUDA graph. The returned
+    parameters lie on the CPU."""
     cfg = cfg if cfg is not None else PlannerConfig()
     prob = setup_problem(pipelines, gold_membership, target_recall,
                          target_precision, cfg, batch_hint, groups, device)
     sizes = prob.sizes
-    run = run_adam(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    run = adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
     flat = run.flat
 
     # --- discrete extraction: cheapest feasible candidate wins ---

@@ -206,8 +206,7 @@ def plan_query(query: Query, items: Sequence[Any], registry: Callable,
                        scale=len(items) / max(len(sample_idx), 1))
     t_rec, t_prec = _effective_targets(query, items)
     plan = optimize_query(pipelines, g,                   # step 3
-                          t_rec, t_prec, cfg,
-                          batch_hint=hint, device=device)
+                          t_rec, t_prec, cfg, batch_hint=hint)
     sel = estimate_selectivities(profiles, plan, sem_ops=sem_ops)
 
     # build stage list (cascades in cost order) for the DP reorderer
@@ -368,8 +367,7 @@ def plan_tree(tree, left_items: Sequence[Any], right_items: Sequence[Any],
                     R.BatchHint(width, cw["pair"])),
     ]
     plan = optimize_query(pipelines_all, g, target_recall,
-                          target_precision, cfg, groups=groups,
-                          device=device)
+                          target_precision, cfg, groups=groups)
 
     # slice the joint solution back into roles and materialize each
     role_profiles = {"left": profiles_l, "right": profiles_r,

@@ -16,9 +16,11 @@ graph with no host sync (`core/optimizer.py`):
 
 CUDA tensors only; the plain versions in `kernels/ref.py` serve CPU
 tensors (see `kernels/ops.py`). Launches are counted in each function's
-`launches`. A launch recorded into a CUDA graph under capture counts in
-`captured` instead, and the code that replays the graph adds the replayed
-launches with `count_replays`.
+`launches`. A launch recorded into a CUDA graph under capture is counted
+apart, per stream it was recorded on (`captured_counts`: the backward of
+a captured step launches from autograd's thread, on the step's stream);
+`ops.capture_graph` returns a replay that adds the launches its graph
+holds.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.kernels import build
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _count_lock = threading.Lock()
 _bound = set()
+_captured = {}      # stream handle -> {function name: launches captured}
 
 
 def _lib():
@@ -56,10 +59,11 @@ def _operands(what, *ts):
     return [t.contiguous() for t in torch.broadcast_tensors(*ts)]
 
 
-def _count(fn) -> None:
+def _count(fn, stream: int) -> None:
     with _count_lock:
         if torch.cuda.is_current_stream_capturing():
-            fn.captured += 1
+            counts = _captured.setdefault(stream, {})
+            counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
         else:
             fn.launches += 1
 
@@ -68,11 +72,12 @@ def beta_incinv(a, b, q) -> torch.Tensor:
     what = "beta_incinv"
     a, b, q = _operands(what, a, b, q)
     x = torch.empty_like(a)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib().stretto_beta_incinv(
         a.data_ptr(), b.data_ptr(), q.data_ptr(), x.data_ptr(), a.numel(),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        stream)
     build.check(err, what)
-    _count(beta_incinv)
+    _count(beta_incinv, stream)
     return x
 
 
@@ -82,12 +87,12 @@ def beta_incinv_grad_terms(a, b, x):
     fd = torch.empty((4,) + tuple(a.shape), dtype=torch.float32,
                      device=a.device)
     pdf = torch.empty_like(a)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib().stretto_beta_incinv_grad(
         a.data_ptr(), b.data_ptr(), x.data_ptr(), fd.data_ptr(),
-        pdf.data_ptr(), a.numel(),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        pdf.data_ptr(), a.numel(), stream)
     build.check(err, what)
-    _count(beta_incinv_grad_terms)
+    _count(beta_incinv_grad_terms, stream)
     return fd, pdf
 
 
@@ -99,11 +104,13 @@ def count_replays(captured: dict, replays: int) -> None:
             fn.launches += captured.get(fn.__name__, 0) * replays
 
 
-def captured_counts() -> dict:
-    return {fn.__name__: fn.captured for fn in KERNELS}
+def captured_counts(stream: int) -> dict:
+    """Launches of each function recorded under capture on `stream` (a
+    `cuda_stream` handle)."""
+    with _count_lock:
+        return dict(_captured.get(stream, {}))
 
 
 KERNELS = (beta_incinv, beta_incinv_grad_terms)
 for _fn in KERNELS:
     _fn.launches = 0
-    _fn.captured = 0

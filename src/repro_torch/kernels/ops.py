@@ -18,11 +18,13 @@ which dequantise in the kernel; the plain versions dequantise up front.
 
 The planner's Beta bounds (`beta_incinv`, `beta_incinv_grad_terms`)
 launch kernel E on CUDA tensors; their plain versions are the float32
-recipe `core/bounds.py` has always run.
+recipe `core/bounds.py` has always run. `capture_graph` captures a step
+that launches E as a CUDA graph whose replays count E's launches.
 """
 from __future__ import annotations
 
 import os
+from typing import Callable
 
 import torch
 
@@ -75,6 +77,43 @@ def launch_counts() -> dict:
     counts["prefill_attention_by_body"] = dict(
         _pa.prefill_attention.launches_by_body)
     return counts
+
+
+GRAPH_WARMUP = 2        # eager steps on the side stream before a capture
+
+
+def capture_graph(step: Callable[[], None], reset: Callable[[], None],
+                  device) -> Callable[[], None]:
+    """Capture `step` (no host sync inside) as one CUDA graph on `device`:
+    it runs GRAPH_WARMUP times on a side stream first (as PyTorch's graph
+    notes ask), then `reset()` puts its state back, then one `step` is
+    captured. Returns `replay()`, which replays the graph and adds the
+    kernel launches it holds to their counts (those recorded on the side
+    stream, from any thread: autograd runs a backward on its own thread).
+    The capture is thread-local: other threads may keep using the card
+    meanwhile, on their own streams."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(GRAPH_WARMUP):
+            step()
+        reset()
+        before = _bb.captured_counts(side.cuda_stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    held = {k: n - before.get(k, 0)
+            for k, n in _bb.captured_counts(side.cuda_stream).items()}
+
+    def replay() -> None:
+        graph.replay()
+        _bb.count_replays(held, 1)
+    return replay
 
 
 def reset_launch_counts() -> None:

@@ -626,6 +626,14 @@ def grad_steps(a, b):
     return 1e-4 * torch.clamp(a, min=1.0), 1e-4 * torch.clamp(b, min=1.0)
 
 
+def fd_grads(fd, a, b) -> torch.Tensor:
+    """dI/da and dI/db (stacked) from the four central-difference terms of
+    `betaincinv_grad_terms_ref`, as betaincinv's backward forms them."""
+    ha, hb = grad_steps(a, b)
+    return torch.stack([(fd[0] - fd[1]) / (2 * ha),
+                        (fd[2] - fd[3]) / (2 * hb)])
+
+
 def betaincinv_grad_terms_ref(a, b, x, host_exit: bool = True,
                               count: bool = False):
     """The plain version of kernel E's second entry: at x clamped to

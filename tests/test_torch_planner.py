@@ -347,14 +347,43 @@ def test_plan_query_matches_jax_under_pinned_clock(monkeypatch, tmp_path):
 # the step the card captures as a CUDA graph, eagerly on the CPU
 # ---------------------------------------------------------------------------
 
+def _eager_loop(loss_fn, flat, cfg, snap_steps):
+    """The CPU's Adam loop as `optimize_query` ran it before the step was
+    written for capture: eager steps on fresh tensors, step and tau made
+    on the host each step."""
+    decay = torch.tensor(TO.tau_decay(cfg), dtype=torch.float32)
+    m, v = torch.zeros_like(flat), torch.zeros_like(flat)
+    b1 = torch.tensor(0.9, dtype=torch.float32)
+    b2 = torch.tensor(0.999, dtype=torch.float32)
+    losses, traj = [], {}
+    for i in range(cfg.steps):
+        step = torch.tensor(float(i), dtype=torch.float32)
+        tau = cfg.tau_start * decay ** step
+        x = flat.detach().requires_grad_(True)
+        loss = loss_fn(x, tau)
+        grad, = torch.autograd.grad(loss.sum(), x)
+        with torch.no_grad():
+            m = 0.9 * m + 0.1 * grad
+            v = 0.999 * v + 0.001 * torch.square(grad)
+            t = step + 1.0
+            mhat = m / (1 - b1 ** t)
+            vhat = v / (1 - b2 ** t)
+            flat = flat - cfg.lr * mhat / (torch.sqrt(vhat) + 1e-8)
+        losses.append(loss.detach())
+        if i in snap_steps:
+            traj[i] = flat
+    return flat, torch.stack(losses), traj
+
+
 @pytest.mark.parametrize("counts", ["query_counts", "tree_counts"])
 def test_captured_adam_step_is_the_eager_loop_bit_for_bit(world, counts):
-    """`adam_loop(graph=False)` runs `adam_step`, the step a CUDA device
+    """`adam_loop` on the CPU runs `adam_step`, the step a CUDA device
     captures (step and tau as tensors, state updated in place, losses
     and snapshots copied into buffers); over a full 200-step run it
-    gives the CPU's `eager_loop` bit for bit: every restart's parameters,
-    every loss and every snapshot (`test_optimize_query_matches_jax`
-    holds that loop to the JAX package)."""
+    gives the eager loop the CPU ran before (`_eager_loop`) bit for bit:
+    every restart's parameters, every loss and every snapshot
+    (`test_optimize_query_matches_jax` holds the loop to the JAX
+    package)."""
     _, g, _, tp = world
     cfg = TO.PlannerConfig(steps=200, restarts=2)
     if counts == "tree_counts":
@@ -364,25 +393,28 @@ def test_captured_adam_step_is_the_eager_loop_bit_for_bit(world, counts):
     else:
         prob = TO.setup_problem(tp, g, 0.7, 0.7, cfg,
                                 batch_hint=TR.BatchHint(64.0, 4.0))
-    eager = TO.eager_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
-    step = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps,
-                        graph=False)
-    assert step.replays == 0 and eager.losses.shape == (200, 2)
-    assert torch.equal(step.flat, eager.flat)
-    assert torch.equal(step.losses, eager.losses)
-    assert sorted(step.snaps) == sorted(eager.snaps) == prob.snap_steps
+    flat, losses, traj = _eager_loop(prob.loss_fn, prob.flat0, cfg,
+                                     prob.snap_steps)
+    step = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    assert step.replays == 0 and losses.shape == (200, 2)
+    assert torch.equal(step.flat, flat)
+    assert torch.equal(step.losses, losses)
+    assert sorted(step.snaps) == sorted(traj) == prob.snap_steps
     for i in prob.snap_steps:
-        assert torch.equal(step.snaps[i], eager.snaps[i])
+        assert torch.equal(step.snaps[i], traj[i])
 
 
 def test_optimize_query_places_its_problem_on_the_device(world):
-    """setup_problem moves every tensor to the requested device; on the
-    CPU `optimize_query` runs the eager loop and returns host tensors."""
+    """The problem lies where the pipelines lie; a `device` other than
+    theirs raises, and so does a graph off CUDA. On the CPU
+    `optimize_query` runs the eager loop and returns host tensors."""
     _, g, _, tp = world
     cfg = TO.PlannerConfig(steps=5, restarts=2)
     prob = TO.setup_problem(tp, g, 0.7, 0.7, cfg, device="cpu")
     assert prob.flat0.shape == (2, 18) and prob.flat0.device.type == "cpu"
     assert all(p.scores.device.type == "cpu" for p in prob.pipelines)
+    with pytest.raises(ValueError, match="pipelines lie on"):
+        TO.setup_problem(tp, g, 0.7, 0.7, cfg, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         TO.adam_loop(prob.loss_fn, prob.flat0, cfg, [], graph=True)
     plan = TO.optimize_query(tp, g, 0.7, 0.7, cfg, device="cpu")
