@@ -72,6 +72,41 @@ Phases, one JSON line each:
            plain version on the card and the CPU and its twin, over the
            Session's real (a, b, q) and a wide grid, timed at a step's
            and the extraction's shapes beside its latency bound
+  pool_planted  the reference's two-tier pool (tests/test_pool.py): a
+           "fast" engine serving the planted sm (kv80, kv50) and an
+           "accurate" one serving lg (kv50 and the gold), 90 items, the
+           quickstart query through a multi-engine Session: EXPLAIN with
+           the engine column, the stages' placement, per-engine totals
+           that partition the run with each engine's kv_bytes equal to
+           its own store's counter; inline, threads:2 and the affinity
+           dispatcher (EngineSpec(dispatcher=2)) bit-identical; the same
+           plan on the CPU equal outside the margin
+  scheduler_planted  QueryScheduler(max_concurrent=3, paused) over that
+           pool: three copies of the quickstart query, each bit-equal to
+           its solo run with its solo run's integer StageStats, the
+           queries' kv_bytes tiling the stores' loads, flushes merged
+           (n_calls < n_flushes), the EXPLAIN ANALYZE "scheduler:" footer;
+           and the oracle world's parity (tests/test_scheduler.py) under
+           inline and threads:2
+  pool_llama8b  two ServingEngines on the card, "compressed" (lg 0.5,
+           int8 0.5) and "gold" (lg 0.8, gold), each with its own store and
+           memory budget, both serving stretto-llama-8b from the same
+           params tensors, joined as Session(backend=PoolBackend(...),
+           reference=ReferenceBackend(gold engine)); the quickstart query
+           over the 8B Session's corpus (32 x 512 tokens): build s per
+           engine, plan / execute s, placement, per-engine totals against
+           the stores; fails if the weights are held twice
+  scheduler_llama8b  the scheduler over that pool: three copies of the
+           quickstart query and a sem_filter on task 2 that plans (and
+           captures its optimizer's CUDA graph) while the copies flush;
+           each query bit-equal to its solo run, merged flushes, A's
+           launches against the solo runs' sum, E 203 / 202 for the plan
+  flush_invariance  per rung (planted float32 sm / lg, 8B bf16 at 0.5,
+           int8 0.5 and the gold), whether an item's flush outputs are
+           bit-equal alone and in flushes of 2, 4, ... up to the
+           profile's batch, with the engine's pinned dense-layer row
+           count and without it (fails unless every pinned size is
+           equal); and the pin's cost on a warm 8B flush
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
@@ -83,8 +118,8 @@ Then the kernels line, the nvidia-smi line and, last, the result line.
 Launch counts: every count is set to 0 just before a path is driven and
 read just after. The kernels line carries, per kernel, the sum of its
 counts over the Session paths (the quickstart query and the join, planted
-and 8B, with the scan legs and the hand-set join tree), and each path's
-count; D appears once per body (prefill_attention_tc, _fma), with that
+and 8B, with the scan legs and the hand-set join tree, the pools and the
+scheduler runs over them), and each path's count; D appears once per body (prefill_attention_tc, _fma), with that
 body's counts; E once per entry (beta_incinv, beta_incinv_grad_terms),
 counting each launch a CUDA-graph replay makes, and its bound_ms is one
 FMA latency (4 cycles at 1.98 GHz) per continued-fraction term of its
@@ -1958,6 +1993,591 @@ def phase_planner(torch, problems):
     return e_rows
 
 
+# ---------------------------------------------------------------------------
+# engine pools and the query scheduler
+# ---------------------------------------------------------------------------
+
+POOL_ITEMS = 90
+AFFINITY = {"fast": 2, "accurate": 2}
+
+
+def _pool_cfg(root):
+    """The reference's two-tier pool (tests/test_pool.py:41-57): a fast
+    engine serving the planted "sm" (kv80, kv50) and an accurate one
+    serving "lg" (kv50 and the gold, the reference), each with a thread
+    affinity of 2 under the session's threads:2 default."""
+    from repro_torch.api import EngineSpec, SessionConfig
+    from repro_torch.core.optimizer import PlannerConfig
+    return SessionConfig(
+        engines=(EngineSpec("fast", models=("sm",), sm_ratios=(0.8, 0.5),
+                            lg_ratios=(), dispatcher=AFFINITY["fast"],
+                            cache_dir=os.path.join(root, "fast")),
+                 EngineSpec("accurate", models=("lg",), sm_ratios=(),
+                            lg_ratios=(0.5,), include_cheap=False,
+                            dispatcher=AFFINITY["accurate"],
+                            cache_dir=os.path.join(root, "accurate"))),
+        gold_engine="accurate", dispatcher="threads:2",
+        planner=PlannerConfig(steps=120, restarts=2, snapshots=2),
+        sample_frac=0.35, partition_size=40)
+
+
+def _cpu_pool(cfg):
+    """The pool's engines on the CPU over the stores the card built,
+    joined as a backend-mode Session (it builds nothing)."""
+    from repro_torch.api import Session
+    from repro_torch.runtime.backend import (KVCacheBackend, PoolBackend,
+                                             ReferenceBackend)
+    engines = {s.name: _cpu_engine(s, s.cache_dir) for s in cfg.engines}
+    members = [(s.name, KVCacheBackend(
+        engines[s.name], sm=s.sm_model, lg=s.lg_model, sm_ratios=s.sm_ratios,
+        lg_ratios=s.lg_ratios, sm_int8=s.sm_int8, lg_int8=s.lg_int8,
+        include_cheap=s.include_cheap)) for s in cfg.engines]
+    gold = next(s for s in cfg.engines if s.name == cfg.gold_engine)
+    return Session(cfg, backend=PoolBackend(members, gold=cfg.gold_engine),
+                   reference=ReferenceBackend(engines[gold.name],
+                                              lg=gold.lg_model),
+                   device="cpu"), engines
+
+
+def _evict_all(engines):
+    for e in engines:
+        e.evict()
+
+
+def _same(a, b) -> bool:
+    """Bit-equal decisions and map values of two results."""
+    import numpy as np
+    return bool(np.array_equal(a.accepted, b.accepted) and set(
+        a.map_values) == set(b.map_values) and all(
+        np.array_equal(a.map_values[li], b.map_values[li])
+        for li in a.map_values))
+
+
+def _engine_totals_check(phase, result, stores_before, engines):
+    """Per-engine totals partition the run exactly, and each engine's
+    kv_bytes equal its own CacheStore's counter over the run."""
+    per = result.engine_totals()
+    deltas = {n: e.store.bytes_loaded - stores_before[n]
+              for n, e in engines.items()}
+    stats = result.stage_stats
+    ok = (sum(d["kv_bytes"] for d in per.values())
+          == sum(s.kv_bytes for s in stats)
+          and sum(d["n_tuples"] for d in per.values())
+          == sum(s.n_tuples for s in stats)
+          and sum(d["n_llm_calls"] for d in per.values())
+          == result.n_llm_tuples
+          and all(per.get(n, {"kv_bytes": 0})["kv_bytes"] == d
+                  for n, d in deltas.items())
+          and all(s.op_name.startswith(s.engine + "/") for s in stats))
+    if not ok:
+        die(phase, f"per-engine totals do not partition the run or miss "
+                   f"the stores' counters: {per} vs {deltas}")
+    return per, deltas
+
+
+def _placement(phase, plan, gold_engine):
+    stages = [(s.op_name, s.engine) for s in plan.stages]
+    if not all(op.startswith(eng + "/") for op, eng in stages) or any(
+            s.engine != gold_engine for s in plan.stages if s.is_gold):
+        die(phase, f"stages not placed on their engines: {stages}")
+    return stages
+
+
+def phase_pool_planted(torch):
+    """The reference's two-tier pool on the card: 90 planted items, the
+    quickstart query through a multi-engine Session (profiles per engine,
+    EXPLAIN with the engine column, execute under the affinity
+    dispatcher, metrics against the gold engine); per-engine totals
+    against each store; inline, threads:2 and affinity bit-identical; the
+    same plan on the CPU equal outside the margin."""
+    from repro_torch.api import Session
+    from repro_torch.data import synthetic as syn
+    from repro_torch.runtime import ThreadPoolDispatcher
+
+    ds = syn.make_dataset("pool", POOL_ITEMS, seed=7)
+    cfg = _pool_cfg(os.path.join(WORK, "pool-planted"))
+    sess = Session(cfg)
+    frame = _frame(sess, ds.items)
+    report, result, metrics, counts, times, _ = _drive_session(
+        torch, sess, [ds.items], frame)
+    emit("session_explain", text=str(report))
+    chunks = sum(e.prefill_chunks for e in sess.engines.values())
+    if counts["expected_attention_scores"] != chunks:
+        die("pool_planted", f"{counts['expected_attention_scores']} launches "
+                            f"of C for {chunks} prefill chunks")
+    for name in ("decode_query_attention", "prefill_attention"):
+        if counts[name] <= 0:
+            die("pool_planted", f"the pool path launched no {name}: {counts}")
+    plan, query = result.raw.plan, frame.to_query()
+    stages = _placement("pool_planted", plan, "accurate")
+    if not (all(s.engine for s in report.stages) and "engine" in str(report)):
+        die("pool_planted", "EXPLAIN has no engine column")
+    disp = sess._default_dispatcher()
+    if not (isinstance(disp, ThreadPoolDispatcher)
+            and disp.engine_workers == AFFINITY):
+        die("pool_planted", f"the session built no affinity dispatcher: "
+                            f"{disp}")
+
+    # from a cold device LRU: every engine's kv_bytes against its store
+    engines = sess.engines
+    _evict_all(engines.values())
+    before = {n: e.store.bytes_loaded for n, e in engines.items()}
+    inline = frame.execute(dispatcher="inline")
+    per, deltas = _engine_totals_check("pool_planted", inline, before,
+                                       engines)
+    threads = frame.execute(dispatcher="threads:2")
+    if not (_same(inline, threads) and _same(inline, result)):
+        die("pool_planted", "inline, threads:2 and the affinity dispatcher "
+                            "decide differently")
+
+    cpu_sess, cpu_engines = _cpu_pool(cfg)
+    cpu = cpu_sess.run(plan, query, ds.items, dispatcher="inline")
+    cpu_same, all_same, n_near = _linear_card_vs_cpu(
+        "pool_planted", sess, plan, query, ds.items, inline.raw, cpu)
+    emit("pool_planted", ok=True, items=len(ds.items), **times,
+         stages=stages, engines_used=sorted({e for _, e in stages}),
+         feasible=report.feasible, metrics=metrics,
+         guarantees_met=metrics["recall"] >= TARGET
+         and metrics["precision"] >= TARGET,
+         engine_totals=per, store_kv_deltas=deltas,
+         inline_threads_affinity_equal=True,
+         cpu_equal_outside_margin=cpu_same, cpu_equal_everywhere=all_same,
+         n_near_margin=n_near, margin=MARGIN,
+         prefill_chunks={n: e.prefill_chunks for n, e in engines.items()},
+         launches=counts,
+         stage_stats=[s.as_dict() for s in inline.stage_stats])
+    cpu_sess.close()
+    del cpu_sess, cpu_engines
+    return counts, (sess, ds.items, frame, inline)
+
+
+def _tiles(a, b) -> bool:
+    """Equal integer StageStats per stage (a query's share of merged
+    flushes against its solo run)."""
+    key = lambda s: (s.logical_idx, s.stage, s.op_name)
+    ints = lambda r: {key(s): (s.n_tuples, s.n_llm_calls, s.n_batches)
+                      for s in r.stage_stats}
+    return ints(a) == ints(b)
+
+
+def _oracle_parity(execute):
+    """tests/test_scheduler.py:118-150 on the card: recording operators
+    (no engine) under four concurrent queries, each bit-identical to its
+    solo run, stats tiling; planned on the card."""
+    import threading
+    import numpy as np
+    from repro_torch.api import Session
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.core.physical import PhysicalOperator
+    from repro_torch.data import synthetic as syn
+    from repro_torch.runtime import OracleBackend
+    from repro_torch.scheduler import QueryScheduler
+
+    lock, log = threading.Lock(), []
+
+    class SinFilter(PhysicalOperator):
+        uses_llm = True
+
+        def __init__(self, name, is_gold=False):
+            self.name, self.is_gold = name, is_gold
+
+        def run_filter(self, items, op):
+            idx = np.asarray([it.item_id for it in items], np.float64)
+            with lock:
+                log.append(len(items))
+            return np.asarray(3.0 * np.sin(idx * 12.9898
+                                           + op.task_id * 78.233), np.float32)
+
+    ops_ = [SinFilter("cheap"), SinFilter("gold", is_gold=True)]
+    sess = Session(backend=OracleBackend(lambda op: ops_),
+                   planner=PlannerConfig(steps=40, restarts=1, snapshots=2),
+                   sample_frac=0.5)
+    ds = syn.make_dataset("sched-par", 90, seed=3)
+    frames = [sess.frame(ds.items).sem_filter(f"f{t}", task_id=t)
+              .with_guarantees(recall=0.7, precision=0.7)
+              for t in (1, 1, 2, 1)]
+    solo = [f.execute() for f in frames]
+    for f in frames:
+        f.plan()
+    with QueryScheduler(sess, max_concurrent=4, paused=True,
+                        execute=execute) as sched:
+        hs = [sched.submit(f) for f in frames]
+        sched.resume()
+        got = [h.result(timeout=300) for h in hs]
+        stats = sched.stats()
+    sess.close()
+    ok = all(_same(r, s) and _tiles(r, s) for r, s in zip(got, solo)) \
+        and stats["n_flushes"] >= stats["n_calls"] > 0
+    return ok, {k: stats[k] for k in ("n_calls", "n_flushes",
+                                      "n_merged_calls")}
+
+
+def _scheduled(torch, sess, submissions, max_concurrent):
+    """One paused scheduler over `submissions` [(frame, plan or None)],
+    resumed at once; returns (results, stats, seconds)."""
+    from repro_torch.scheduler import QueryScheduler
+    t0 = time.perf_counter()
+    with QueryScheduler(sess, max_concurrent=max_concurrent,
+                        paused=True) as sched:
+        hs = [sched.submit(f, plan=p) for f, p in submissions]
+        sched.resume()
+        results = [h.result(timeout=900) for h in hs]
+        stats = sched.stats()
+    torch.cuda.synchronize()
+    return results, stats, time.perf_counter() - t0
+
+
+def _merge_checks(phase, results, solos, stats, loaded):
+    """Every query bit-equal to its solo run, its integer StageStats
+    equal to the solo run's, the per-query kv_bytes tiling the loads the
+    merged calls made, flushes merged, and the EXPLAIN ANALYZE footer."""
+    if not all(_same(r, s) for r, s in zip(results, solos)):
+        die(phase, "a scheduled query decides differently from its solo run")
+    if not all(_tiles(r, s) for r, s in zip(results, solos)):
+        die(phase, "a scheduled query's StageStats differ from its solo run")
+    kv = sum(s.kv_bytes for r in results for s in r.stage_stats)
+    if kv != loaded:
+        die(phase, f"per-query kv_bytes {kv} do not tile the stores' loads "
+                   f"{loaded}")
+    if not stats["n_calls"] < stats["n_flushes"]:
+        die(phase, f"the hub merged no flushes: {stats}")
+    text = results[0].explain_analyze().render()
+    if "scheduler: tenant=default (standard)" not in text:
+        die(phase, "EXPLAIN ANALYZE has no scheduler footer")
+    return kv, text
+
+
+def _a_launches(c) -> int:
+    return c["decode_query_attention"] + c["decode_query_attention_int8"]
+
+
+def phase_scheduler_planted(torch, kept):
+    """QueryScheduler(max_concurrent=3, paused) over the planted pool:
+    three copies of the quickstart query, against its solo run; then the
+    oracle world's parity under inline and threads:2."""
+    from repro_torch.kernels import ops
+    sess, items, frame, solo = kept
+    engines = list(sess.engines.values())
+    _evict_all(engines)
+    before = sum(e.store.bytes_loaded for e in engines)
+    ops.reset_launch_counts()
+    results, stats, wall = _scheduled(torch, sess, [(frame, None)] * 3, 3)
+    counts = ops.launch_counts()
+    loaded = sum(e.store.bytes_loaded for e in engines) - before
+    kv, text = _merge_checks("scheduler_planted", results, [solo] * 3,
+                             stats, loaded)
+    if _a_launches(counts) <= 0:
+        die("scheduler_planted", f"no launch of A: {counts}")
+    oracle = {}
+    for execute in ("inline", "threads:2"):
+        ok, st = _oracle_parity(execute)
+        if not ok:
+            die("scheduler_planted", f"oracle world under {execute}: a query "
+                                     f"differs from its solo run: {st}")
+        oracle[execute] = st
+    emit("scheduler_planted", ok=True, queries=3, items=len(items),
+         wall_s=wall, stats=stats,
+         sched=[r.sched.as_dict() for r in results], kv_bytes=kv,
+         a_launches=_a_launches(counts), launches=counts,
+         footer=[ln for ln in text.splitlines() if "scheduler" in ln
+                 or "shared_batches" in ln], oracle_parity=oracle)
+    return counts
+
+
+POOL_8B = {"compressed": dict(lg_ratios=(0.5,), lg_int8=(0.5,),
+                              build=(0.5,)),
+           "gold": dict(lg_ratios=(0.8,), lg_int8=(), build=(0.8, 0.0))}
+
+
+def _weights_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(_weights_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def phase_pool_llama8b(torch, params):
+    """Two ServingEngines on the card, "compressed" (lg 0.5, int8 0.5)
+    and "gold" (lg 0.8, gold), each with its own CacheStore and memory
+    budget (device LRU off: every flush loads, so the stores' counters
+    account for each query exactly), both registering stretto-llama-8b as
+    "lg" with the same params tensors (the weights once), joined as
+    Session(cfg, backend=PoolBackend(...), reference=ReferenceBackend(gold
+    engine)); the quickstart query over the 8B Session's corpus."""
+    from repro_torch.api import Session, SessionConfig
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.configs.stretto_llama_8b import CONFIG as cfg8
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.backend import (KVCacheBackend, PoolBackend,
+                                             ReferenceBackend)
+    from repro_torch.serving.engine import ServingEngine
+
+    ds = syn.make_dataset("llama8b-session", SESSION_8B_ITEMS,
+                          seq_len=SESSION_8B_LEN, seed=6)
+    weights_gb = _weights_bytes(params) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    timer = _PlanTimer()
+    ops.reset_launch_counts()
+    try:
+        engines, build_s, members = {}, {}, []
+        for name, rung in POOL_8B.items():
+            eng = ServingEngine(
+                CacheStore(os.path.join(WORK, f"pool-8b-{name}")),
+                memory_budget_bytes=2e9, device_cache=False, device="cuda")
+            eng.register_model("lg", cfg8, params)
+            t0 = time.perf_counter()
+            eng.build_profiles("lg", ds.items, ratios=rung["build"],
+                               prefill_batch=4, quant_ratios=rung["lg_int8"])
+            torch.cuda.synchronize()
+            build_s[name] = time.perf_counter() - t0
+            engines[name] = eng
+            members.append((name, KVCacheBackend(
+                eng, sm="lg", lg="lg", sm_ratios=(),
+                lg_ratios=rung["lg_ratios"], lg_int8=rung["lg_int8"],
+                include_cheap=False)))
+        sess = Session(SessionConfig(planner=PlannerConfig(steps=200,
+                                                           restarts=3)),
+                       backend=PoolBackend(members, gold="gold"),
+                       reference=ReferenceBackend(engines["gold"], lg="lg"))
+        frame = _frame(sess, ds.items)
+        t1 = time.perf_counter()
+        report = frame.explain()
+        t2 = time.perf_counter()
+        result = frame.execute()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = ops.launch_counts()
+    finally:
+        timer.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("session_explain", text=str(report))
+    chunks = sum(e.prefill_chunks for e in engines.values())
+    if counts["expected_attention_scores"] != chunks:
+        die("pool_llama8b", f"{counts['expected_attention_scores']} launches "
+                            f"of C for {chunks} prefill chunks")
+    for name in ("decode_query_attention", "prefill_attention"):
+        if counts[name] <= 0:
+            die("pool_llama8b", f"the 8B pool launched no {name}: {counts}")
+    if engines["compressed"].models["lg"].params is not \
+            engines["gold"].models["lg"].params or peak_gb >= 2 * weights_gb:
+        die("pool_llama8b", f"the weights are held twice: peak {peak_gb} GB "
+                            f"for {weights_gb} GB of weights")
+    plan = result.raw.plan
+    stages = _placement("pool_llama8b", plan, "gold")
+    if result.accepted.shape != (len(ds.items),):
+        die("pool_llama8b", "result has the wrong shape")
+
+    # the solo run the scheduler is held to, from a cold LRU: per-engine
+    # totals against each store, and A's launches of one execution
+    _evict_all(engines.values())
+    before = {n: e.store.bytes_loaded for n, e in engines.items()}
+    ops.reset_launch_counts()
+    solo = frame.execute(dispatcher="inline")
+    solo_counts = ops.launch_counts()
+    per, deltas = _engine_totals_check("pool_llama8b", solo, before, engines)
+    if not _same(solo, result):
+        die("pool_llama8b", "inline and the default dispatcher differ")
+    metrics = result.metrics()
+    emit("pool_llama8b", ok=True, items=len(ds.items),
+         item_tokens=SESSION_8B_LEN, build_s=build_s,
+         plan_s=t2 - t1, **timer.s, execute_s=t3 - t2,
+         items_per_s=len(ds.items) / max(t3 - t2, 1e-9),
+         stages=stages, engines_used=sorted({e for _, e in stages}),
+         feasible=report.feasible, metrics=metrics, engine_totals=per,
+         store_kv_deltas=deltas, weights_gb=weights_gb, peak_mem_gb=peak_gb,
+         prefill_chunks={n: e.prefill_chunks for n, e in engines.items()},
+         launches=counts, solo_a_launches=_a_launches(solo_counts),
+         stage_stats=[s.as_dict() for s in solo.stage_stats])
+    return counts, (sess, ds.items, frame, solo, solo_counts, engines)
+
+
+def phase_scheduler_llama8b(torch, kept):
+    """The scheduler over the 8B pool: three copies of the quickstart
+    query (planned already) and one sem_filter on task 2, submitted
+    paused, so the filter's query thread plans (captures the optimizer's CUDA
+    graph) while the copies flush. Each query against its solo run, the
+    hub's merge counters, A's launches against the solo runs' sum
+    (executions, and the filter's planning again outside the memo), and
+    E's launches for the one plan made (203 / 202)."""
+    from repro_torch.core.planner import plan_query
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.dispatch import DEFAULT_COALESCE
+    sess, items, frame, solo, solo_counts, engines = kept
+    filt = (sess.frame(items).sem_filter("mentions topic 2", task_id=2)
+            .with_guarantees(recall=TARGET, precision=TARGET))
+    plan = frame.plan()
+    _evict_all(engines.values())
+    before = sum(e.store.bytes_loaded for e in engines.values())
+    ops.reset_launch_counts()
+    results, stats, wall = _scheduled(
+        torch, sess, [(frame, plan)] * 3 + [(filt, None)], 4)
+    counts = ops.launch_counts()
+    loaded = sum(e.store.bytes_loaded for e in engines.values()) - before
+    cfg = sess.config.planner
+    e_plan = [counts["beta_incinv"], counts["beta_incinv_grad_terms"]]
+    if e_plan != [cfg.steps + 3, cfg.steps + 2]:
+        die("scheduler_llama8b", f"E's launches for the one plan made: "
+                                 f"{e_plan}, not "
+                                 f"{[cfg.steps + 3, cfg.steps + 2]}")
+
+    # the filter's solo run (its plan is the one its query thread made), from a
+    # cold LRU, and its planning's launches again, outside the memo
+    fplan, fquery = filt.plan(), filt.to_query()
+    _evict_all(engines.values())
+    ops.reset_launch_counts()
+    fsolo = sess.run(fplan, fquery, items, dispatcher="inline")
+    f_counts = ops.launch_counts()
+    _evict_all(engines.values())
+    p_before = sum(e.store.bytes_loaded for e in engines.values())
+    ops.reset_launch_counts()
+    c = sess.config
+    plan_query(fquery, items, sess.backend, cfg, sample_frac=c.sample_frac,
+               seed=c.seed, reorder=c.reorder, coalesce=DEFAULT_COALESCE,
+               device=sess.device)
+    torch.cuda.synchronize()
+    p_counts = ops.launch_counts()
+    # with the device LRU off every flush and every profiling call loads,
+    # so the queries' kv_bytes tile what the stores loaded less the
+    # filter's profiling loads
+    p_loaded = sum(e.store.bytes_loaded for e in engines.values()) - p_before
+    kv, text = _merge_checks("scheduler_llama8b", results,
+                             [solo] * 3 + [fsolo], stats, loaded - p_loaded)
+    sched_a = _a_launches(counts)
+    solo_a = 3 * _a_launches(solo_counts) + _a_launches(f_counts) \
+        + _a_launches(p_counts)
+    if not sched_a < solo_a:
+        die("scheduler_llama8b", f"A's launches under the scheduler "
+                                 f"{sched_a} not below the solo runs' "
+                                 f"{solo_a}")
+    emit("scheduler_llama8b", ok=True, queries=4, items=len(items),
+         item_tokens=SESSION_8B_LEN, wall_s=wall, stats=stats,
+         sched=[r.sched.as_dict() for r in results], kv_bytes=kv,
+         a_launches_scheduler=sched_a, a_launches_solo_sum=solo_a,
+         a_launches_filter_planning=_a_launches(p_counts),
+         e_launches_per_plan=e_plan,
+         filter_stages=[(s.op_name, s.engine) for s in fplan.stages],
+         launches=counts)
+    return counts
+
+
+def _dense_ms(torch, params, cfg, rows, reps=5) -> float:
+    """Device ms of one decode flush's dense layers at `rows` rows (every
+    layer's q/k/v/o projections and SwiGLU, then the head), CUDA events,
+    median of `reps`; the 16 GB of weights keep L2 cold on their own."""
+    import statistics
+    from repro_torch.models.transformer import _head
+    lay = params["layers"]
+    a, m = lay["attn"], lay["mlp"]
+    x = torch.randn(rows, cfg.d_model, device="cuda").to(params["embed"].dtype)
+    o = torch.randn(rows, cfg.n_heads * cfg.d_head,
+                    device="cuda").to(x.dtype)
+    head = _head(params, cfg)
+
+    def run():
+        for i in range(cfg.n_layers):
+            x @ a["wq"][i], x @ a["wk"][i], x @ a["wv"][i], o @ a["wo"][i]
+            ((x @ m["w_gate"][i]) * (x @ m["w_up"][i])) @ m["w_down"][i]
+        x @ head
+    run()
+    times = []
+    for _ in range(reps):
+        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_.record()
+        run()
+        e_.record()
+        torch.cuda.synchronize()
+        times.append(s_.elapsed_time(e_))
+    return statistics.median(times)
+
+
+def _pin_cost_ms(torch, eng, ids, sizes=(8, 32), reps=5):
+    """The pin's cost at 8B, per flush size n, unpinned against pinned,
+    in turns (off, on, on, off): the host ms of one warm flush (device LRU
+    hit, so decode only; median each), and the device ms of its dense
+    layers at n rows against the pinned rows."""
+    import statistics
+    from repro_torch.data import synthetic as syn
+    em = eng.models["lg"]
+    out, lru = {}, eng.device_cache
+    eng.device_cache = True
+    for n in sizes:
+        times = {False: [], True: []}
+        for pin in (False, True, True, False):
+            eng.pin_rows = pin
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                eng.run_filter("lg", 0.5, ids[:n], [syn.filter_query_token(1)],
+                               syn.TOK_YES, syn.TOK_NO)
+                times[pin].append((time.perf_counter() - t0) * 1e3)
+        eng.pin_rows = True
+        dense = {}
+        for rows in (n, eng.max_batch, eng.max_batch, n):
+            dense.setdefault(rows, []).append(
+                _dense_ms(torch, em.params, em.cfg, rows))
+        out[n] = {"flush_unpinned_ms": statistics.median(times[False]),
+                  "flush_pinned_ms": statistics.median(times[True]),
+                  "dense_unpinned_ms": min(dense[n]),
+                  "dense_pinned_ms": min(dense[eng.max_batch])}
+    eng.device_cache = lru
+    eng.evict()
+    return out
+
+
+def phase_flush_invariance(torch, planted, llama):
+    """Does an item's flush output depend on its batch? Per rung (planted
+    float32 sm / lg at 0.5 and the lg gold, 8B bfloat16 at 0.5, int8 0.5
+    and the gold), flush_invariance (serving/engine.py): the item alone
+    against flushes of 2, 4, ... up to the profile's batch, first and
+    last, with the engines' pinned row count and without it. Fails unless
+    every pinned size is bit-equal. Then the pin's cost on a warm 8B
+    flush. Measurement only: no path, so no launch counts."""
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import flush_invariance
+    psess, pitems = planted[0], planted[1]
+    lsess, litems, engines8 = llama[0], llama[1], llama[5]
+    rungs = [("planted sm kv50 float32", psess.engines["fast"], "sm", 0.5,
+              False, pitems),
+             ("planted lg kv50 float32", psess.engines["accurate"], "lg",
+              0.5, False, pitems),
+             ("planted lg gold float32", psess.engines["accurate"], "lg", 0.0,
+              False, pitems),
+             ("8B lg kv50 bfloat16", engines8["compressed"], "lg", 0.5,
+              False, litems),
+             ("8B lg kv50 int8", engines8["compressed"], "lg", 0.5, True,
+              litems),
+             ("8B lg gold bfloat16", engines8["gold"], "lg", 0.0, False,
+              litems)]
+    rows = []
+    for label, eng, model, ratio, quant, items in rungs:
+        ids = [it.item_id for it in items]
+        row = {"rung": label}
+        for pin in (True, False):
+            eng.pin_rows = pin
+            try:
+                got = flush_invariance(
+                    eng, model, ratio, ids[0], ids[1:],
+                    filter_args=([syn.filter_query_token(1)], syn.TOK_YES,
+                                 syn.TOK_NO),
+                    map_args=([syn.map_query_token(2)],
+                              [syn.value_token(v) for v in range(8)]),
+                    quant=quant)
+            finally:
+                eng.pin_rows = True
+            row["pinned" if pin else "unpinned"] = {
+                str(n): ok for n, ok in got.items()}
+        rows.append(row)
+        if not all(row["pinned"].values()):
+            die("flush_invariance", f"{label}: an item's flush output "
+                                    f"depends on its batch: {row}")
+    ids8 = [it.item_id for it in litems]
+    cost = _pin_cost_ms(torch, engines8["compressed"], ids8)
+    emit("flush_invariance", ok=True, rungs=rows,
+         pinned_rows={"planted": psess.engines["fast"].max_batch,
+                      "8B": engines8["compressed"].max_batch},
+         pin_cost_8b_flush=cost)
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -2058,7 +2678,15 @@ def main() -> int:
         del kept
         paths["session_join_llama8b"] = phase_session_join_llama8b(torch,
                                                                    params)
-        del params
+        paths["pool_planted"], planted = phase_pool_planted(torch)
+        paths["scheduler_planted"] = phase_scheduler_planted(torch, planted)
+        paths["pool_llama8b"], llama = phase_pool_llama8b(torch, params)
+        paths["scheduler_llama8b"] = phase_scheduler_llama8b(torch, llama)
+        phase_flush_invariance(torch, planted, llama)
+        planted[0].close()
+        llama[0].close()
+        del planted, llama, params
+        torch.cuda.empty_cache()
         _check_prefill_bodies(paths)
         rows.update(phase_planner(torch, problems))
     finally:

@@ -1,8 +1,8 @@
 """EXPLAIN / EXPLAIN ANALYZE: structured plan report + table renderer.
 
-The port of `repro.api.explain` (ExplainReport and the tree-shaped
-TreeExplainReport; the scheduler / remote footers wait with their
-subsystems).
+The port of `repro.api.explain` (ExplainReport with its scheduler
+footer, and the tree-shaped TreeExplainReport; the remote footer waits
+with remote members).
 
 `SemFrame.explain()` returns an ExplainReport — the logical plan, the
 physical cascade in execution order (thresholds, expected coalesced batch,
@@ -130,6 +130,14 @@ class ExplainReport:
     # kv_bytes) — exact partition of the run totals; empty until ANALYZE,
     # rendered only for pooled (multi-engine-tagged) executions
     measured_engines: Tuple[Tuple[str, float, int, int, int], ...] = ()
+    # cross-query coalescing telemetry: flushes of this query that rode a
+    # merged engine batch, and the summed width of those shared batches —
+    # zero unless the run went through the QueryScheduler's FlushHub
+    measured_shared_batches: Optional[int] = None
+    measured_shared_width: Optional[int] = None
+    # scheduler footer (key, value) pairs attached by with_scheduler()
+    # when the result came through concurrent admission
+    scheduler_info: Tuple[Tuple[str, Any], ...] = ()
 
     @property
     def analyzed(self) -> bool:
@@ -228,7 +236,21 @@ class ExplainReport:
                 getattr(sg, "donated_bytes", 0)
                 for sg in result.stage_stats),
             measured_engines=per_engine,
+            measured_shared_batches=sum(
+                getattr(sg, "shared_batches", 0)
+                for sg in result.stage_stats),
+            measured_shared_width=sum(
+                getattr(sg, "shared_width", 0)
+                for sg in result.stage_stats),
             **exec_cfg)
+
+    def with_scheduler(self, sched) -> "ExplainReport":
+        """Attach per-query scheduler telemetry (a QueryTelemetry from
+        repro_torch.scheduler) so ANALYZE renders a "scheduler:" footer:
+        tenant and tier, queue wait, slot occupancy, and how much of this
+        query's work rode cross-query coalesced batches."""
+        info = sched.as_dict() if hasattr(sched, "as_dict") else dict(sched)
+        return replace(self, scheduler_info=tuple(info.items()))
 
     def rows(self) -> List[Dict[str, Any]]:
         """The stage table as dicts (execution order)."""
@@ -332,6 +354,30 @@ class ExplainReport:
                         f"  engine {eng or '--'}: wall_s={wall:.2f} "
                         f"tuples={tuples} llm_calls={llm} "
                         f"kvMB={kv / 1e6:.1f}")
+            if self.scheduler_info:
+                info = dict(self.scheduler_info)
+                tenant = info.pop("tenant", "default")
+                tier = info.pop("tier", "standard")
+                out.append(f"scheduler: tenant={tenant} ({tier})")
+                keys = ("queue_wait_s", "run_wall_s", "slots",
+                        "shared_batches", "shared_width")
+                parts = []
+                for k in keys:
+                    v = info.pop(k, None)
+                    if v is None:
+                        continue
+                    parts.append(f"{k}={v:.3f}" if isinstance(v, float)
+                                 else f"{k}={v}")
+                parts += [f"{k}={v}" for k, v in info.items()
+                          if k not in ("query_id", "weight")]
+                if parts:
+                    out.append("  " + " ".join(parts))
+            elif self.measured_shared_batches:
+                out.append(
+                    f"scheduler: shared_batches="
+                    f"{self.measured_shared_batches} shared_width="
+                    f"{self.measured_shared_width} (flushes merged with "
+                    f"concurrent queries)")
         return "\n".join(out)
 
     def __str__(self) -> str:

@@ -42,6 +42,10 @@ class QueryResult:
         self.items = items
         self.raw = raw
         self._metrics_cache: Optional[Dict[str, float]] = None
+        # Populated by the QueryScheduler when this result came through
+        # concurrent admission: a QueryTelemetry with queue wait, slot
+        # occupancy, and cross-query coalescing counters.
+        self.sched = None
 
     # ---------------- raw execution fields ----------------
 
@@ -170,7 +174,10 @@ class QueryResult:
             plan = self.session.plan(self.query, self.items)
         report = ExplainReport.from_plan(self.session, self.query,
                                          self.items, plan)
-        return report.with_measured(self.raw)
+        report = report.with_measured(self.raw)
+        if self.sched is not None:
+            report = report.with_scheduler(self.sched)
+        return report
 
     def speedup_vs_gold(self) -> float:
         """Measured speedup over the gold reference execution, on elapsed

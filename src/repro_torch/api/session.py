@@ -1,25 +1,36 @@
 """Session: engine lifecycle + configuration behind the declarative API.
 
-The port of `repro.api.session`, for one local engine. A Session owns
-what `examples/quickstart.py` would otherwise hand-wire: the CacheStore,
-the ServingEngine, planted-model registration, KV-cache profile building
-(the paper's offline phase), runtime backend construction, and the
-planner/executor configuration, all declared once in a `SessionConfig`.
-Queries are built against it with ``session.frame(items)`` (see
-api/frame.py).
+The port of `repro.api.session`. A Session owns what
+`examples/quickstart.py` would otherwise hand-wire: the CacheStore(s),
+the ServingEngine(s), planted-model registration, KV-cache profile
+building (the paper's offline phase), runtime backend construction, and
+the planner/executor configuration, all declared once in a
+`SessionConfig`. Queries are built against it with
+``session.frame(items)`` (see api/frame.py).
 
-The engine runs on `EngineSpec.device` (a torch device; "cuda" unless the
-caller says otherwise, as every entry point of the port): on the card its
-decode flushes and profile scoring launch the hand-written CUDA kernels,
-and a missing card raises instead of running on the CPU. Planning runs
-its gradient optimizer on the same device (`Session.device`): on the
-card one Adam step is a CUDA graph replayed per step, and a
-`device="cpu"` session plans eagerly on the host.
+Engines are declarative and may be heterogeneous: ``SessionConfig(
+engines=(EngineSpec("fast", ...), EngineSpec("accurate", ...)))``
+declares a named pool. Each spec owns its model zoo, compression ladder,
+cache store and serving limits; the runtime backend becomes a
+`PoolBackend` whose candidate union lets the planner place every cascade
+stage on one engine, and `gold_engine` names the engine whose gold
+operator is the reference. The flat fields (`models` / `sm_ratios` /
+...) compile to a single spec named "default" and keep the bare
+single-engine backend.
+
+Every engine runs on its `EngineSpec.device` (a torch device; "cuda"
+unless the caller says otherwise, as every entry point of the port): on
+the card its decode flushes and profile scoring launch the hand-written
+CUDA kernels, and a missing card raises instead of running on the CPU.
+Planning runs its gradient optimizer on the same device
+(`Session.device`): on the card one Adam step is a CUDA graph replayed
+per step, and a `device="cpu"` session plans eagerly on the host.
 
 Join trees go through `plan_tree` / `run_tree` / `gold_tree` (and
-`SemFrame.sem_join`). Not ported yet (each raises NotImplementedError and
-is queued in ROADMAP queue 1): engine pools (several EngineSpecs), remote
-engine members (`EngineSpec.address`), tenants and the query scheduler.
+`SemFrame.sem_join`). `Session.scheduler()` admits concurrent queries
+under the tenants of `SessionConfig.tenants` (see repro_torch.scheduler).
+Remote engine members (`EngineSpec.address`) are not ported yet: they
+raise NotImplementedError and are queued in ROADMAP queue 1.
 
 The Session compiles to, and never bypasses, the internal layer: plans
 come from `core.planner.plan_query`, execution goes through
@@ -53,16 +64,41 @@ _UNSET = object()     # "inherit the session default" sentinel
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1: pools, "
-        f"the scheduler and remote members come in later slices)")
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1: remote "
+        f"members come in a later slice)")
+
+
+def _affinity_workers(dispatcher) -> Optional[int]:
+    """Normalize an EngineSpec.dispatcher affinity declaration to a thread
+    count: an int, or a ``threads[:N]`` spec string. None: no affinity."""
+    if dispatcher is None:
+        return None
+    if isinstance(dispatcher, int):
+        n = dispatcher
+    elif isinstance(dispatcher, str):
+        kind, _, arg = dispatcher.partition(":")
+        if kind != "threads":
+            raise ValueError(
+                f"engine dispatcher affinity {dispatcher!r}: only "
+                f"'threads[:N]' (or an int worker count) is supported")
+        n = int(arg) if arg else 1
+    else:
+        raise ValueError(f"cannot read engine dispatcher affinity "
+                         f"{dispatcher!r} (int or 'threads[:N]')")
+    if n <= 0:
+        raise ValueError(f"engine dispatcher affinity must be positive, "
+                         f"got {n}")
+    return n
 
 
 @dataclass(frozen=True)
 class EngineSpec:
-    """The serving engine of a Session.
+    """One named serving engine of a Session's pool.
 
-      name             — engine name (single-engine sessions leave operator
-                         names unprefixed)
+      name             — unique engine name; pooled operators are keyed
+                         ``name/op`` everywhere (plans, StageStats,
+                         EXPLAIN's engine column); single-engine sessions
+                         leave operator names unprefixed
       models           — planted-zoo model names this engine registers;
                          models[0] is the "sm" tier, models[-1] the "lg"
                          tier (a single entry serves as both)
@@ -73,6 +109,12 @@ class EngineSpec:
                          tempdir, removed on close)
       prefill_batch / memory_budget_bytes / max_batch / model_seed —
                          serving limits and the planted weights' seed
+      dispatcher       — optional thread-affinity hint (int workers or
+                         ``threads[:N]``): under a "threads" session
+                         dispatcher this engine's flushes get a dedicated
+                         pool of that size
+      cost_scale       — static cost multiplier applied to this engine's
+                         candidates when the pool orders them
       kernels          — attention kernel backend for this engine's decode
                          flushes: "auto" | "cuda" | "ref" (None: the
                          STRETTO_TORCH_KERNELS env var, read at flush time,
@@ -105,6 +147,8 @@ class EngineSpec:
     memory_budget_bytes: float = 2e9
     max_batch: int = 128
     model_seed: int = 1
+    dispatcher: Optional[Any] = None
+    cost_scale: float = 1.0
     kernels: Optional[str] = None
     fused: Optional[bool] = None
     device_cache: Optional[bool] = None
@@ -132,6 +176,10 @@ class EngineSpec:
                 f"is the engine/op separator in pooled operator names")
         if not self.models:
             raise ValueError(f"engine {self.name!r} declares no models")
+        if self.cost_scale <= 0:
+            raise ValueError(f"engine {self.name!r}: cost_scale must be "
+                             f"positive, got {self.cost_scale}")
+        _affinity_workers(self.dispatcher)      # validate eagerly
 
     @property
     def sm_model(self) -> str:
@@ -153,12 +201,17 @@ class EngineSpec:
 class SessionConfig:
     """Everything a Session needs, declared once.
 
-    Engine — two equivalent declarations:
-      engines          — a tuple holding one EngineSpec (pools of several
-                         engines are not ported yet and raise)
+    Engines — two equivalent declarations:
+      engines          — a tuple of named EngineSpec entries: the session
+                         serves a heterogeneous pool, the runtime backend
+                         is a PoolBackend unioning every engine's
+                         candidate ladder, and the planner places each
+                         stage on one engine. Names must be unique;
+                         engines=() is an error.
       <flat fields>    — the single-engine form below; it compiles to one
                          EngineSpec named "default" (see resolved_engines)
-      The engine's gold operator defines the quality reference.
+      gold_engine      — which engine's gold operator defines the quality
+                         reference (default: the first declared engine)
 
     Engine / offline phase (flat form)
       cache_dir        — on-disk cache store root (None: fresh tempdir,
@@ -195,7 +248,12 @@ class SessionConfig:
                          instance, a directory of stage_stats*.json
                          snapshots to aggregate, or None for a fresh store
 
-    `tenants` (the query scheduler) is not ported yet and raises.
+    Tenants
+      tenants          — TenantSpec entries (repro_torch.scheduler)
+                         declaring tier / fair-share weight / keep-warm
+                         cache policy for Session.scheduler(). None: every
+                         scheduled query runs under an implicit "default"
+                         standard tenant.
     """
     cache_dir: Optional[str] = None
     models: Tuple[str, ...] = ("sm", "lg")
@@ -219,6 +277,7 @@ class SessionConfig:
     lg_int8: Tuple[float, ...] = ()
 
     engines: Optional[Tuple[EngineSpec, ...]] = None
+    gold_engine: Optional[str] = None
     tenants: Optional[Tuple[Any, ...]] = None
 
     planner: Optional[PlannerConfig] = None
@@ -238,15 +297,25 @@ class SessionConfig:
             if not self.engines:
                 raise ValueError(
                     "SessionConfig(engines=()) declares no engines — "
-                    "declare one EngineSpec, or omit `engines` for the "
-                    "flat single-engine form")
-            if len(self.engines) > 1:
-                _not_ported("an engine pool (several EngineSpecs)")
+                    "declare at least one EngineSpec, or omit `engines` "
+                    "for the flat single-engine form")
+            names = [e.name for e in self.engines]
+            dups = sorted({n for n in names if names.count(n) > 1})
+            if dups:
+                raise ValueError(f"duplicate engine name(s): {dups}")
+        if self.gold_engine is not None:
+            names = [e.name for e in self.resolved_engines()]
+            if self.gold_engine not in names:
+                raise ValueError(
+                    f"gold_engine {self.gold_engine!r} is not a declared "
+                    f"engine (engines: {names})")
         if self.tenants is not None:
-            _not_ported("SessionConfig.tenants (the query scheduler)")
+            from repro_torch.scheduler.tenants import validate_tenants
+            object.__setattr__(self, "tenants",
+                               validate_tenants(self.tenants))
 
     def resolved_engines(self) -> Tuple[EngineSpec, ...]:
-        """The engine this config declares. The flat fields (models /
+        """The engine pool this config declares. The flat fields (models /
         sm_ratios / lg_ratios / cache_dir / ...) compile to a single spec
         named "default"."""
         if self.engines is not None:
@@ -266,8 +335,15 @@ class SessionConfig:
 
     def ladder(self) -> Tuple[float, ...]:
         """The compression ratios profiles are built at (gold 0.0 always
-        included — the reference backend needs it)."""
-        return self.resolved_engines()[0].ladder()
+        included — the reference backend needs it). Single-engine view
+        only: a pool has one ladder per engine, so ask each resolved
+        EngineSpec instead."""
+        specs = self.resolved_engines()
+        if len(specs) > 1:
+            raise ValueError(
+                "a multi-engine SessionConfig has per-engine ladders; "
+                "call .ladder() on each spec in resolved_engines()")
+        return specs[0].ladder()
 
 
 class Session:
@@ -275,18 +351,20 @@ class Session:
 
     Three construction modes:
 
-      Session()                      — owns everything: fresh cache store,
-                                       planted models on the configured
-                                       device, profiles built lazily per
-                                       corpus on first use
-      Session(engine=eng)            — adopts an existing ServingEngine
+      Session()                      — owns everything: fresh cache
+                                       store(s), planted models on each
+                                       spec's device, profiles built
+                                       lazily per corpus on first use
+      Session(engine=eng)            — adopts one existing ServingEngine
                                        (models are the caller's; call
                                        .prepare(items) to build profiles)
       Session(backend=b)             — wraps any runtime Backend (e.g. an
-                                       OracleBackend over a registry);
-                                       no engine, no profile building —
-                                       gold references come from the
-                                       backend's own gold operators
+                                       OracleBackend over a registry, or
+                                       a PoolBackend over prebuilt
+                                       engines); no engine, no profile
+                                       building — gold references come
+                                       from `reference=` or the backend's
+                                       own gold operators
     """
 
     def __init__(self, config: Optional[SessionConfig] = None, *,
@@ -323,27 +401,44 @@ class Session:
             self.measured = MeasuredBatchStore()
         self.n_replans = 0
 
+        # the declared engine pool: every session resolves to named specs
+        # (flat configs become one spec named "default")
         self.engine_specs: Tuple[EngineSpec, ...] = config.resolved_engines()
         self._specs_by_name = {s.name: s for s in self.engine_specs}
+        self.gold_engine_name: str = config.gold_engine \
+            if config.gold_engine is not None else self.engine_specs[0].name
+        self._engine_workers: Dict[str, int] = {}
+        for spec in self.engine_specs:
+            w = _affinity_workers(spec.dispatcher)
+            if w is not None:
+                self._engine_workers[spec.name] = w
+        self._affinity_disp = None
 
         self._owns_engine = engine is None and backend is None
         if backend is not None and engine is None:
             self.engines: Dict[str, Any] = {}
             self.engine = None
         elif engine is not None:
+            if len(self.engine_specs) > 1:
+                raise ValueError(
+                    "Session(engine=...) adopts exactly one engine; a "
+                    "multi-engine SessionConfig must let the session "
+                    "build its own pool (or wrap a prebuilt PoolBackend "
+                    "via Session(backend=...))")
             self.engines = {self.engine_specs[0].name: engine}
             self.engine = engine
         else:
             self.engines = self._build_engines()
             self.engine = self.engines[self.engine_specs[0].name]
         self.backend: Backend = as_backend(backend) \
-            if backend is not None else self.backend_for()
+            if backend is not None else self._default_backend()
         if reference is not None:
             self.reference = as_backend(reference)
         elif self.engines:
             from repro_torch.runtime.backend import ReferenceBackend
+            gold_spec = self._specs_by_name[self.gold_engine_name]
             self.reference = ReferenceBackend(
-                self.engine, lg=self.engine_specs[0].lg_model)
+                self.engines[gold_spec.name], lg=gold_spec.lg_model)
         else:
             # no engine: the backend's own gold operators (candidates
             # list, gold last) are the reference
@@ -352,7 +447,7 @@ class Session:
     @property
     def device(self):
         """Where the session plans (its gradient optimizer's loop): the
-        engine's device, else the configured one."""
+        first engine's device, else the configured one."""
         if self.engine is not None:
             return self.engine.device
         return resolve_device(self.config.device)
@@ -397,6 +492,9 @@ class Session:
         if self._closed:
             return
         self._closed = True
+        if self._affinity_disp is not None:
+            self._affinity_disp.close()
+            self._affinity_disp = None
         for d in self._owned_cache_dirs:
             shutil.rmtree(d, ignore_errors=True)
         self._owned_cache_dirs = []
@@ -452,9 +550,11 @@ class Session:
 
     def prepare(self, items: Sequence[Any],
                 ratios: Optional[Sequence[float]] = None) -> None:
-        """Build KV-cache profiles for this corpus (offline phase) at the
-        engine's ladder (`ratios` overrides it), plus its int8 rungs. Safe
-        to call repeatedly: each (engine, corpus, ladder) is built once."""
+        """Build KV-cache profiles for this corpus (offline phase), per
+        engine at each engine's own ladder (`ratios` overrides every
+        ladder), plus its int8 rungs. Safe to call repeatedly — and from
+        concurrent scheduler queries — each (engine, corpus, ladder) is
+        built once."""
         if not self.engines:
             return                      # backend-only session: nothing to do
         with self._state_lock:
@@ -494,8 +594,10 @@ class Session:
                     sm_ratios: Optional[Tuple[float, ...]] = None,
                     lg_ratios: Optional[Tuple[float, ...]] = None,
                     include_cheap: Optional[bool] = None) -> Backend:
-        """A KVCacheBackend over the session engine with an alternative
-        candidate ladder (defaults: the engine's declared ladder)."""
+        """A KVCacheBackend over one session engine (default: the first
+        declared) with an alternative candidate ladder (defaults: that
+        engine's declared ladder). Single-engine view — the session
+        default for pool configs is `_default_backend()`."""
         if not self.engines:
             raise RuntimeError("session has no engine: it wraps an "
                                "externally supplied backend")
@@ -513,6 +615,19 @@ class Session:
             include_cheap=spec.include_cheap if include_cheap is None
             else include_cheap)
 
+    def _default_backend(self) -> Backend:
+        """The session's runtime backend: the bare KVCacheBackend for a
+        single-engine config (operator names stay unprefixed), a
+        PoolBackend routing across every declared engine otherwise."""
+        if len(self.engine_specs) == 1:
+            return self.backend_for()
+        from repro_torch.runtime.backend import PoolBackend
+        return PoolBackend(
+            [(spec.name, self.backend_for(engine=spec.name))
+             for spec in self.engine_specs],
+            gold=self.gold_engine_name,
+            cost_scales={s.name: s.cost_scale for s in self.engine_specs})
+
     # ---------------- query building ----------------
 
     def frame(self, items: Sequence[Any], query: Optional[Query] = None):
@@ -528,6 +643,38 @@ class Session:
 
     # ---------------- internal layer (plan / execute / gold) ----------
 
+    def _default_dispatcher(self):
+        """The session-default dispatcher argument, honoring per-engine
+        thread affinity: when any EngineSpec declares a `dispatcher`
+        worker hint and the session default resolves to a "threads" spec,
+        a session-owned ThreadPoolDispatcher with dedicated per-engine
+        pools is used (completions still apply in global submission
+        order, so decisions are unchanged)."""
+        spec = self.config.dispatcher
+        if not self._engine_workers:
+            return spec
+        if spec is not None and not isinstance(spec, str):
+            return spec                 # caller-supplied instance wins
+        from repro_torch.runtime.dispatch import (ThreadPoolDispatcher,
+                                                  effective_spec)
+        eff = effective_spec(spec)
+        if not eff.startswith("threads"):
+            return spec
+        if self._affinity_disp is None:
+            _, _, arg = eff.partition(":")
+            kwargs: Dict[str, Any] = {
+                "engine_workers": dict(self._engine_workers)}
+            if arg:
+                n = int(arg)
+                if n <= 0:
+                    # same contract as resolve_dispatcher: a bad count
+                    # must fail loudly, not silently clamp to 1 worker
+                    raise ValueError(f"dispatcher spec {eff!r}: worker "
+                                     f"count must be positive, got {n}")
+                kwargs["n_workers"] = n
+            self._affinity_disp = ThreadPoolDispatcher(**kwargs)
+        return self._affinity_disp
+
     def _exec_kwargs(self, partition_size=_UNSET, coalesce=_UNSET,
                      dispatcher=_UNSET) -> Dict[str, Any]:
         cfg = self.config
@@ -535,8 +682,8 @@ class Session:
             "partition_size": cfg.partition_size
             if partition_size is _UNSET else partition_size,
             "coalesce": cfg.coalesce if coalesce is _UNSET else coalesce,
-            "dispatcher": cfg.dispatcher if dispatcher is _UNSET
-            else dispatcher,
+            "dispatcher": self._default_dispatcher()
+            if dispatcher is _UNSET else dispatcher,
         }
 
     def plan(self, query: Query, items: Sequence[Any]) -> PhysicalPlan:
@@ -706,7 +853,10 @@ class Session:
                 self._gold_cache[key] = got
             return got
 
-    # ---------------- not ported yet ----------------
-
     def scheduler(self, **kwargs):
-        _not_ported("Session.scheduler (the query scheduler)")
+        """Build a QueryScheduler admitting concurrent queries onto this
+        session (see repro_torch.scheduler). Tenants default to the
+        session config's `tenants` tuple; keyword arguments are forwarded
+        to the QueryScheduler constructor."""
+        from repro_torch.scheduler import QueryScheduler
+        return QueryScheduler(self, **kwargs)

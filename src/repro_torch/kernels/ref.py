@@ -29,18 +29,10 @@ NEG_INF = -1e30
 def decode_attention_ref(q, k_cache, v_cache, lengths, *,
                          window: int = GLOBAL):
     """q: (B, KV, G, dk); k: (B, S, KV, dk); v: (B, S, KV, dv);
-    lengths: (B,). Returns (B, KV, G, dv)."""
-    dk = q.shape[-1]
-    S = k_cache.shape[1]
-    qf = q.float() * dk ** -0.5
-    s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
-    pos = torch.arange(S, device=q.device)[None, :]
-    lengths = lengths.to(q.device).long()
-    mask = (pos < lengths[:, None]) & ((lengths - 1)[:, None] - pos < window)
-    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    return out.to(q.dtype)
+    lengths: (B,). Returns (B, KV, G, dv): `decode_query_attention_ref`
+    at Lq 1."""
+    return decode_query_attention_ref(q[:, None], k_cache, v_cache, lengths,
+                                      window=window)[:, 0]
 
 
 def decode_query_attention_ref(q, k_cache, v_cache, lengths, *,
@@ -50,21 +42,29 @@ def decode_query_attention_ref(q, k_cache, v_cache, lengths, *,
     q: (B, Lq, KV, G, dk); k: (B, S, KV, dk); v: (B, S, KV, dv);
     lengths: (B,) counts all valid tokens INCLUDING the Lq query tokens.
     Query i sits at position lengths - Lq + i and attends causally within
-    `window`. Returns (B, Lq, KV, G, dv)."""
-    Lq, dk = q.shape[1], q.shape[-1]
+    `window`. Returns (B, Lq, KV, G, dv).
+
+    Batch-invariant, as the kernels are: both products take contiguous
+    (B, KV, ., .) operands, so an item's rows go through the same batched
+    GEMM whatever B is (at B 1 a permuted view would reach the library
+    strided, through another kernel that rounds differently)."""
+    B, Lq, KV, G, dk = q.shape
     S = k_cache.shape[1]
-    qf = q.float() * dk ** -0.5
-    s = torch.einsum("blhgd,bshd->blhgs", qf, k_cache.float())
     dev = q.device
+    qf = (q.float() * dk ** -0.5).permute(0, 2, 1, 3, 4).reshape(
+        B, KV, Lq * G, dk).contiguous()
+    kf = k_cache.float().permute(0, 2, 3, 1).contiguous()    # (B, KV, dk, S)
+    s = torch.matmul(qf, kf).reshape(B, KV, Lq, G, S)
     lengths = lengths.to(dev).long()
     k_pos = torch.arange(S, device=dev)[None, None, :]
     q_pos = (lengths[:, None] - Lq
              + torch.arange(Lq, device=dev)[None, :])[:, :, None]
-    mask = (k_pos <= q_pos) & ((q_pos - k_pos) < window)
-    s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("blhgs,bshd->blhgd", p, v_cache.float())
-    return out.to(q.dtype)
+    mask = (k_pos <= q_pos) & ((q_pos - k_pos) < window)      # (B, Lq, S)
+    s = torch.where(mask[:, None, :, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).reshape(B, KV, Lq * G, S)
+    vf = v_cache.float().permute(0, 2, 1, 3).contiguous()    # (B, KV, S, dv)
+    out = torch.matmul(p.contiguous(), vf)
+    return out.reshape(B, KV, Lq, G, -1).permute(0, 2, 1, 3, 4).to(q.dtype)
 
 
 DECODE_SPLIT, DECODE_SUB = 128, 16  # kernel A's split, and its warps' share

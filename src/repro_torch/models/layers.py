@@ -148,42 +148,60 @@ def gqa_attn_full(p, x, cfg: ModelConfig, window, positions, *,
     return out @ p["wo"], (k, v)
 
 
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """`t` with its leading axis padded to `rows` by copies of row 0 (the
+    decode paths' pinned row count: padding rows are computed, then
+    dropped)."""
+    n = t.shape[0]
+    if rows <= n:
+        return t
+    return torch.cat([t, t[:1].expand((rows - n,) + tuple(t.shape[1:]))])
+
+
 def gqa_attn_decode(p, x, cfg: ModelConfig, window, cache_k, cache_v,
                     lengths, *, kernels=None, k_scale=None, v_scale=None):
-    """x: (B, 1, d). cache_[kv]: (B, S, KV, dh) already holding this step's
-    k/v at position lengths-1. Attention through kernels.ops."""
-    B = x.shape[0]
+    """x: (R, 1, d) with R >= B, the cache's batch (rows past B pad the
+    projections to a pinned row count and are not attended). cache_[kv]:
+    (B, S, KV, dh) already holding this step's k/v at position lengths-1.
+    Attention through kernels.ops. Returns (R, 1, d)."""
+    R, B = x.shape[0], lengths.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    positions = (lengths - 1)[:, None]
-    q = (x @ p["wq"]).reshape(B, 1, H, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)[:, 0]
+    positions = pad_rows((lengths - 1)[:, None], R)
+    q = (x @ p["wq"]).reshape(R, 1, H, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)[:B, 0]
     q = q.reshape(B, KV, H // KV, dh)
     out = KOPS.decode_attention(q, cache_k, cache_v, lengths, window=window,
                                 backend=kernels, k_scale=k_scale,
                                 v_scale=v_scale)
-    return out.reshape(B, 1, H * dh) @ p["wo"]
+    return pad_rows(out.reshape(B, 1, H * dh), R) @ p["wo"]
 
 
 def gqa_attn_decode_multi(p, x, cfg: ModelConfig, window, cache_k, cache_v,
                           lengths, *, kernels=None, k_scale=None,
                           v_scale=None):
-    """Fused multi-token decode: x (B, Lq, d), one attention launch for all
-    Lq query tokens. cache_[kv] already holds the Lq new k/v (positions
-    lengths-Lq .. lengths-1); the kernel masks causally per query token."""
-    B, Lq, _ = x.shape
+    """Fused multi-token decode: x (R, Lq, d) with R >= B, the cache's
+    batch (rows past B pad the projections to a pinned row count and are
+    not attended), one attention launch for all Lq query tokens.
+    cache_[kv] already holds the Lq new k/v (positions lengths-Lq ..
+    lengths-1); the kernel masks causally per query token. Returns
+    (R, Lq, d)."""
+    R, Lq, _ = x.shape
+    B = lengths.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    positions = lengths[:, None] - Lq + torch.arange(Lq, device=x.device)[None, :]
-    q = (x @ p["wq"]).reshape(B, Lq, H, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
+    positions = pad_rows(lengths[:, None] - Lq + torch.arange(
+        Lq, device=x.device)[None, :], R)
+    q = (x @ p["wq"]).reshape(R, Lq, H, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)[:B]
     q = q.reshape(B, Lq, KV, H // KV, dh)
     out = KOPS.decode_query_attention(q, cache_k, cache_v, lengths,
                                       window=window, backend=kernels,
                                       k_scale=k_scale, v_scale=v_scale)
-    return out.reshape(B, Lq, H * dh) @ p["wo"]
+    return pad_rows(out.reshape(B, Lq, H * dh), R) @ p["wo"]
 
 
 def gqa_new_kv(p, x, cfg: ModelConfig, lengths):
-    """This step's k/v for cache insertion. x: (B, 1, d)."""
+    """This step's k/v for cache insertion. x: (B, 1, d); lengths (B,)
+    (callers with pinned rows pad both)."""
     B = x.shape[0]
     positions = (lengths - 1)[:, None]
     k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)

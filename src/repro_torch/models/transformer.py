@@ -246,34 +246,38 @@ def _quantize(x):
     return q, s
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, kernels=None):
+def decode_step(params, cfg: ModelConfig, cache, tokens, kernels=None,
+                rows=None):
     """One decode step. tokens: (B, 1). Returns (logits (B, V), new_cache).
     The new token sits at position cache["lengths"]; lengths are
-    incremented in the returned cache."""
+    incremented in the returned cache. `rows` pins the dense layers' row
+    count (see decode_multi)."""
     _check_gqa(cfg)
     pos = cache["lengths"].long()                 # (B,)
     new_len = (pos + 1).to(torch.int32)
-    x = params["embed"][tokens]                   # (B, 1, d)
-    B = x.shape[0]
+    B = tokens.shape[0]
+    R = max(B, rows or B)
+    x = params["embed"][L.pad_rows(tokens, R)]    # (R, 1, d)
     bidx = torch.arange(B, device=x.device)
     windows = build_window_array(cfg)
     quant = "k_scale" in cache
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        k_new, v_new = L.gqa_new_kv(p["attn"], h, cfg, new_len)
+        k_new, v_new = L.gqa_new_kv(p["attn"], h, cfg,
+                                    L.pad_rows(new_len, R))
         ck, cv = cache["k"][i], cache["v"][i]
         if quant:
             k_q, ks = _quantize(k_new)
             v_q, vs = _quantize(v_new)
-            ck[bidx, pos] = k_q[:, 0]
-            cv[bidx, pos] = v_q[:, 0]
-            cache["k_scale"][i][bidx, pos] = ks[:, 0]
-            cache["v_scale"][i][bidx, pos] = vs[:, 0]
+            ck[bidx, pos] = k_q[:B, 0]
+            cv[bidx, pos] = v_q[:B, 0]
+            cache["k_scale"][i][bidx, pos] = ks[:B, 0]
+            cache["v_scale"][i][bidx, pos] = vs[:B, 0]
             k_sc, v_sc = cache["k_scale"][i], cache["v_scale"][i]
         else:
-            ck[bidx, pos] = k_new[:, 0].to(ck.dtype)
-            cv[bidx, pos] = v_new[:, 0].to(cv.dtype)
+            ck[bidx, pos] = k_new[:B, 0].to(ck.dtype)
+            cv[bidx, pos] = v_new[:B, 0].to(cv.dtype)
             k_sc = v_sc = None
         x = x + L.gqa_attn_decode(p["attn"], h, cfg, int(windows[i]), ck, cv,
                                   new_len, kernels=kernels, k_scale=k_sc,
@@ -281,7 +285,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, kernels=None):
         h2 = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
         x = x + L.swiglu_mlp(p["mlp"], h2)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, 0] @ _head(params, cfg)
+    logits = (x[:, 0] @ _head(params, cfg))[:B]
     new_cache = dict(cache)
     new_cache["lengths"] = new_len
     return logits, new_cache
@@ -292,36 +296,46 @@ def supports_fused_decode(cfg: ModelConfig) -> bool:
     return cfg.attn_kind == "gqa"
 
 
-def decode_multi(params, cfg: ModelConfig, cache, tokens, kernels=None):
+def decode_multi(params, cfg: ModelConfig, cache, tokens, kernels=None,
+                 rows=None):
     """Fused multi-token decode: all Lq query tokens in one pass, one
     attention launch per layer. tokens: (B, Lq). Returns (logits (B, V)
     of the LAST query token, new_cache); the Lq k/v land at positions
-    lengths .. lengths+Lq-1 and attention is causal per query token."""
+    lengths .. lengths+Lq-1 and attention is causal per query token.
+
+    `rows` (>= B) pins the row count of the dense layers (projections,
+    SwiGLU, the head, and the row-wise norms, RoPE and quantisation
+    between them): their inputs are padded with copies of row 0 to `rows`
+    rows, so a matmul library that picks its algorithm by M (cuBLAS does)
+    rounds an item's row the same whatever batch the item is decoded in.
+    Only the attention and the cache writes see the B real rows."""
     _check_gqa(cfg)
     pos0 = cache["lengths"].long()
-    x = params["embed"][tokens]                   # (B, Lq, d)
-    B, Lq = x.shape[:2]
+    B, Lq = tokens.shape
+    R = max(B, rows or B)
     new_len = (pos0 + Lq).to(torch.int32)
+    x = params["embed"][L.pad_rows(tokens, R)]    # (R, Lq, d)
     positions = pos0[:, None] + torch.arange(Lq, device=x.device)[None, :]
+    rpositions = L.pad_rows(positions, R)
     bidx = torch.arange(B, device=x.device)[:, None]
     windows = build_window_array(cfg)
     quant = "k_scale" in cache
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        k_new, v_new = L.gqa_new_kv_multi(p["attn"], h, cfg, positions)
+        k_new, v_new = L.gqa_new_kv_multi(p["attn"], h, cfg, rpositions)
         ck, cv = cache["k"][i], cache["v"][i]
         if quant:
             k_q, ks = _quantize(k_new)
             v_q, vs = _quantize(v_new)
-            ck[bidx, positions] = k_q
-            cv[bidx, positions] = v_q
-            cache["k_scale"][i][bidx, positions] = ks
-            cache["v_scale"][i][bidx, positions] = vs
+            ck[bidx, positions] = k_q[:B]
+            cv[bidx, positions] = v_q[:B]
+            cache["k_scale"][i][bidx, positions] = ks[:B]
+            cache["v_scale"][i][bidx, positions] = vs[:B]
             k_sc, v_sc = cache["k_scale"][i], cache["v_scale"][i]
         else:
-            ck[bidx, positions] = k_new.to(ck.dtype)
-            cv[bidx, positions] = v_new.to(cv.dtype)
+            ck[bidx, positions] = k_new[:B].to(ck.dtype)
+            cv[bidx, positions] = v_new[:B].to(cv.dtype)
             k_sc = v_sc = None
         x = x + L.gqa_attn_decode_multi(p["attn"], h, cfg, int(windows[i]),
                                         ck, cv, new_len, kernels=kernels,
@@ -329,7 +343,7 @@ def decode_multi(params, cfg: ModelConfig, cache, tokens, kernels=None):
         h2 = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
         x = x + L.swiglu_mlp(p["mlp"], h2)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, -1] @ _head(params, cfg)
+    logits = (x[:, -1] @ _head(params, cfg))[:B]
     new_cache = dict(cache)
     new_cache["lengths"] = new_len
     return logits, new_cache

@@ -3,6 +3,7 @@
   kernel.py    — accept/reject/unsure decision rule (numpy; torch for
                  the relaxation)
   backend.py   — Backend protocol + Oracle / KVCache / Reference backends
+                 and the engine pool (PoolBackend)
   executor.py  — streaming partitioned cascade executor (StageStats)
   dispatch.py  — flush dispatch: inline / thread pool (STRETTO_DISPATCHER)
   plan_utils.py — gold plans, gold membership, PipelineData lifting and
@@ -22,6 +23,8 @@ _EXPORTS = {
     "KVCacheBackend": "repro_torch.runtime.backend",
     "ReferenceBackend": "repro_torch.runtime.backend",
     "RegistryBackend": "repro_torch.runtime.backend",
+    "PoolBackend": "repro_torch.runtime.backend",
+    "EngineTaggedOperator": "repro_torch.runtime.backend",
     "as_backend": "repro_torch.runtime.backend",
     "StageStats": "repro_torch.runtime.executor",
     "RuntimeResult": "repro_torch.runtime.executor",
@@ -36,6 +39,7 @@ _EXPORTS = {
     "estimate_selectivities": "repro_torch.runtime.plan_utils",
     "DEFAULT_COALESCE": "repro_torch.runtime.dispatch",
     "FlushTask": "repro_torch.runtime.dispatch",
+    "backend_engines": "repro_torch.runtime.dispatch",
     "InlineDispatcher": "repro_torch.runtime.dispatch",
     "ThreadPoolDispatcher": "repro_torch.runtime.dispatch",
     "resolve_dispatcher": "repro_torch.runtime.dispatch",

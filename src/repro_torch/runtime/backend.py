@@ -10,15 +10,24 @@ of a logical op, gold last) and batched invocation.
                       (compressed) KV-cache profiles, with KV-bytes
                       telemetry.
   ReferenceBackend  — uncompressed gold only (largest model, ratio 0.0).
+  PoolBackend       — a routing pool over *named* member backends
+                      (heterogeneous engines): `candidates()` is the union
+                      of every member's non-gold candidates, each tagged
+                      with its owning engine (operator names become
+                      ``engine/op``), sorted by (cost-scaled) static cost,
+                      with exactly one gold — the designated gold engine's
+                      — resolved last. score_filter / run_map and the
+                      KV-bytes counter route to the owning member, so the
+                      planner prices and the executor attributes every
+                      stage per (engine, operator).
 
-The routing pool over several engines (`PoolBackend`) is not ported yet.
 `as_backend` adapts registry callables.
 """
 from __future__ import annotations
 
 import threading
-from typing import (Any, Callable, Dict, List, Protocol, Sequence,
-                    Tuple, runtime_checkable)
+from typing import (Any, Callable, Dict, List, Optional, Protocol,
+                    Sequence, Tuple, runtime_checkable)
 
 import numpy as np
 
@@ -190,6 +199,135 @@ class ReferenceBackend(RegistryBackend):
 
     def transfer_stats(self) -> Tuple[float, int]:
         return self.engine.transfer_stats_local()
+
+
+class EngineTaggedOperator(PhysicalOperator):
+    """A member engine's physical operator, as seen through a PoolBackend:
+    the name gains an ``engine/`` prefix (so MeasuredBatchStore feedback
+    and StageStats stay keyed per (engine, op) even when two engines serve
+    the same model ladder), `.engine_name` names the owner (a dedicated
+    attribute — serving operators already use `.engine` for the
+    ServingEngine object itself), and the static cost-model estimate is
+    scaled by the engine's declared `cost_scale` (candidate *ordering* —
+    profiling still measures real wall time)."""
+
+    def __init__(self, engine_name: str, inner: PhysicalOperator,
+                 cost_scale: float = 1.0):
+        self.engine_name = engine_name
+        self.inner = inner
+        self.cost_scale = float(cost_scale)
+        self.name = f"{engine_name}/{inner.name}"
+        self.is_gold = bool(getattr(inner, "is_gold", False))
+        self.uses_llm = bool(getattr(inner, "uses_llm", True))
+
+    def run_filter(self, items: Sequence[Any], op) -> np.ndarray:
+        return self.inner.run_filter(items, op)
+
+    def run_map(self, items: Sequence[Any], op):
+        return self.inner.run_map(items, op)
+
+    def cost_model(self) -> float:
+        return self.inner.cost_model() * self.cost_scale
+
+    def max_batch(self) -> Optional[int]:
+        fn = getattr(self.inner, "max_batch", None)
+        return fn() if callable(fn) else None
+
+
+class PoolBackend(RegistryBackend):
+    """Routing pool over named heterogeneous member backends.
+
+    `members` is an ordered mapping (or sequence of pairs) ``name ->
+    Backend``; `gold` names the member whose gold operator defines the
+    reference (default: the first member — declaration order is the
+    priority order). Candidates are the union of every member's non-gold
+    candidates tagged ``name/op`` and sorted by cost-scaled static cost,
+    plus the gold member's gold operator, last and unique — the Backend
+    contract every planner/profiler path relies on. Execution and
+    KV-bytes telemetry route to the owning member: a flush touches
+    exactly one engine's cache store, so per-stage counters attribute to
+    the right engine with no extra bookkeeping.
+    """
+
+    name = "pool"
+
+    def __init__(self, members, *, gold: Optional[str] = None,
+                 cost_scales: Optional[Dict[str, float]] = None):
+        pairs = list(members.items()) if isinstance(members, dict) \
+            else [(n, b) for n, b in members]
+        if not pairs:
+            raise ValueError("PoolBackend needs at least one member engine")
+        names = [n for n, _ in pairs]
+        dups = sorted({n for n in names if names.count(n) > 1})
+        if dups:
+            raise ValueError(f"duplicate engine name(s) in pool: {dups}")
+        self.members: Dict[str, Backend] = {n: as_backend(b)
+                                            for n, b in pairs}
+        self.gold_engine = gold if gold is not None else names[0]
+        if self.gold_engine not in self.members:
+            raise ValueError(
+                f"gold engine {self.gold_engine!r} is not a pool member "
+                f"(engines: {sorted(self.members)})")
+        self.cost_scales = {n: float((cost_scales or {}).get(n, 1.0))
+                            for n in names}
+        super().__init__(self._union)
+
+    def _union(self, op) -> List[PhysicalOperator]:
+        ops: List[PhysicalOperator] = []
+        for name, member in self.members.items():
+            for phys in member.candidates(op):
+                if getattr(phys, "is_gold", False):
+                    continue        # one gold only: the gold engine's
+                ops.append(EngineTaggedOperator(name, phys,
+                                                self.cost_scales[name]))
+        # cost order (stable: declaration order breaks ties), gold LAST
+        ops.sort(key=lambda t: t.cost_model())
+        golds = [p for p in self.members[self.gold_engine].candidates(op)
+                 if getattr(p, "is_gold", False)]
+        if not golds:
+            raise ValueError(f"gold engine {self.gold_engine!r} offers no "
+                             f"gold operator for {op}")
+        ops.append(EngineTaggedOperator(self.gold_engine, golds[-1],
+                                        self.cost_scales[self.gold_engine]))
+        return ops
+
+    def resolve(self, op, op_name: str) -> PhysicalOperator:
+        try:
+            return super().resolve(op, op_name)
+        except KeyError:
+            engine, sep, _ = op_name.partition("/")
+            if sep and engine not in self.members:
+                # surfaced at resolve time, on the submitting thread —
+                # never deep inside a dispatched flush
+                raise ValueError(
+                    f"operator {op_name!r} references unknown engine "
+                    f"{engine!r}; pool engines: {sorted(self.members)}"
+                ) from None
+            raise
+
+    def member(self, engine: str) -> Backend:
+        """The named member backend."""
+        try:
+            return self.members[engine]
+        except KeyError:
+            raise ValueError(f"unknown engine {engine!r}; pool engines: "
+                             f"{sorted(self.members)}") from None
+
+    def kv_bytes_loaded(self) -> int:
+        # per-thread sum over members: each member counts only its own
+        # store's loads, so a flush (which touches exactly one engine)
+        # contributes its delta to exactly one term
+        return sum(m.kv_bytes_loaded() for m in self.members.values())
+
+    def transfer_stats(self) -> Tuple[float, int]:
+        h2d, donated = 0.0, 0
+        for m in self.members.values():
+            fn = getattr(m, "transfer_stats", None)
+            if fn is not None:
+                mh, md = fn()
+                h2d += mh
+                donated += md
+        return (h2d, donated)
 
 
 def as_backend(registry_or_backend) -> Backend:

@@ -167,6 +167,22 @@ def effective_spec(spec=None) -> str:
     return getattr(spec, "name", str(spec))
 
 
+def backend_engines(backend) -> List[Any]:
+    """Every ServingEngine a runtime backend routes flushes to: the
+    engine of a KVCache/Reference backend, the union over a PoolBackend's
+    members, [] for engineless (oracle/registry) backends."""
+    eng = getattr(backend, "engine", None)
+    if eng is not None:
+        return [eng]
+    members = getattr(backend, "members", None)
+    if members:
+        out: List[Any] = []
+        for m in members.values():
+            out.extend(backend_engines(m))
+        return out
+    return []
+
+
 def resolve_dispatcher(spec=None) -> Tuple[Any, bool]:
     """Resolve a dispatcher argument to (dispatcher, owned).
 

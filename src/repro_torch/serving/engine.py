@@ -39,6 +39,15 @@ allocator for the next batch; those bytes are counted into
 `donated_bytes` (the JAX engine's buffer donation). Both counters are
 kept globally and per thread (`transfer_stats_local`).
 
+An item's scores do not depend on the flush it is decoded in: the decode
+attention kernels are batch-invariant, and a flush runs its dense layers
+(projections, SwiGLU, the head) at `max_batch` x Lq rows whatever its
+batch, padding the activations, not the caches (`decode_multi(rows=)`).
+Without that pin the matmul library picks its algorithm by row count
+and rounds a row differently by batch (cuBLAS and PyTorch's CPU matmul
+both do: `flush_invariance` below measures it), so a query's scores
+under the scheduler's merged flushes would drift from its solo run's.
+
 Batch size is memory-bounded: higher compression -> smaller caches ->
 larger batches -> fewer calls (the paper's batching speedup mechanism).
 Multi-device placement (`place_on` onto another device) waits with the
@@ -119,6 +128,9 @@ class ServingEngine:
                              if device_cache is None else bool(device_cache))
         self.async_h2d = (_env_flag("STRETTO_ASYNC_H2D")
                           if async_h2d is None else bool(async_h2d))
+        # the dense layers' pinned row count is on; flush_invariance
+        # switches it off only to measure what it prevents
+        self.pin_rows = True
         self.h2d_overlap_s = 0.0
         self.donated_bytes = 0
         self._xfer_lock = threading.Lock()
@@ -270,15 +282,17 @@ class ServingEngine:
 
     def _run_tokens(self, em: EngineModel, fused: bool, backend: str,
                     cache, tokens):
-        """Final-token logits of the query `tokens` (B, Lq) over `cache`."""
+        """Final-token logits of the query `tokens` (B, Lq) over `cache`,
+        the dense layers at `max_batch` rows when `pin_rows`."""
+        rows = self.max_batch if self.pin_rows else None
         if fused:
             return decode_multi(em.params, em.cfg, cache, tokens=tokens,
-                                kernels=backend)[0]
+                                kernels=backend, rows=rows)[0]
         logits = None
         for t in range(tokens.shape[1]):
             logits, cache = decode_step(em.params, em.cfg, cache,
                                         tokens=tokens[:, t:t + 1],
-                                        kernels=backend)
+                                        kernels=backend, rows=rows)
         return logits
 
     def warm(self, model_name: str, ratio: float, item_ids: Sequence[int],
@@ -446,6 +460,43 @@ class ServingEngine:
             confs[s:s + len(ids)] = (top2[:, 0] - top2[:, 1]).float() \
                 .cpu().numpy()
         return vals, confs
+
+
+def flush_invariance(engine: ServingEngine, model_name: str, ratio: float,
+                     probe: int, others: Sequence[int], *,
+                     filter_args: Tuple[Sequence[int], int, int],
+                     map_args: Tuple[Sequence[int], Sequence[int]],
+                     quant: bool = False) -> Dict[int, bool]:
+    """Whether item `probe`'s flush outputs depend on its batch: its
+    `run_filter` log-odds (filter_args: query tokens, yes, no) and its
+    `run_map` value and confidence (map_args: query tokens, value tokens)
+    alone, against the same in one flush of n = 2, 4, ... up to the
+    profile's memory-bounded batch with items of `others` (cycled) beside
+    it, once with the probe first and once last. Returns {n: bit-equal}."""
+    bs = engine.max_batch_for(model_name, ratio, probe, quant=quant)
+    sizes, n = [], 2
+    while n < bs:
+        sizes.append(n)
+        n *= 2
+    sizes.append(bs)
+    fq, yes, no = filter_args
+    mq, vals = map_args
+
+    def outputs(ids):
+        lo = engine.run_filter(model_name, ratio, ids, fq, yes, no,
+                               quant=quant)
+        v, c = engine.run_map(model_name, ratio, ids, mq, vals, quant=quant)
+        return lo, v, c
+
+    alone = [o[0] for o in outputs([probe])]
+    out = {}
+    for n in sizes:
+        fill = [others[i % len(others)] for i in range(n - 1)]
+        first = [o[0] for o in outputs([probe] + fill)]
+        last = [o[-1] for o in outputs(fill + [probe])]
+        out[n] = all(np.array_equal(a, b) and np.array_equal(a, c)
+                     for a, b, c in zip(alone, first, last))
+    return out
 
 
 def _bucket(n: int) -> int:

@@ -326,10 +326,13 @@ def test_unported_parts_raise():
     from repro_torch.api import EngineSpec, SessionConfig
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineSpec("remote", address="127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionConfig(engines=(EngineSpec("a"), EngineSpec("b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionConfig(tenants=())
+    # engine pools and tenants are ported: the config validates them
+    pool = SessionConfig(engines=(EngineSpec("a"), EngineSpec("b")),
+                         gold_engine="b")
+    assert [e.name for e in pool.resolved_engines()] == ["a", "b"]
+    with pytest.raises(ValueError, match="duplicate"):
+        SessionConfig(engines=(EngineSpec("a"), EngineSpec("a")))
+    assert SessionConfig(tenants=()).tenants == ()
     with pytest.raises(ValueError):
         EngineSpec("bad", kernels="pallas")
     # join trees are ported: sem_join / plan_tree / run_tree / gold_tree
@@ -355,5 +358,8 @@ def test_unported_parts_raise():
     assert all(left.items[a].row["category"]
                == right.items[b - 1_000_000].row["category"]
                for a, b in res.pair_ids)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.scheduler()
+    # so is the query scheduler
+    from repro_torch.scheduler import QueryScheduler
+    with sess.scheduler(paused=True) as sched:
+        assert isinstance(sched, QueryScheduler)
+        assert sched.stats()["tenants"]["default"]["n_queries"] == 0

@@ -866,3 +866,92 @@ def test_baselines_plan_on_the_card_as_on_the_cpu(gpu, tmp_path,
             a, b = stages["cuda"][k], stages["cpu"][k]
             for x, y in ((a.thr_hi, b.thr_hi), (a.thr_lo, b.thr_lo)):
                 assert x == y or abs(x - y) < tol, (fn.__name__, k, x, y)
+
+
+def _planted_card_engine(root, **kw):
+    """The planted sm / lg models on the card, profiles at 0.5, gold and
+    int8 0.5, over 40 items."""
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import ServingEngine
+    ds = syn.make_dataset("flush-inv", 40, seed=3)
+    eng = ServingEngine(CacheStore(str(root)), device="cuda", **kw)
+    for size in ("sm", "lg"):
+        cfg = syn.planted_config(size)
+        eng.register_model(size, cfg, syn.make_planted_params(
+            cfg, seed=0, device="cuda"))
+        eng.build_profiles(size, ds.items, ratios=(0.5, 0.0),
+                           prefill_batch=40, quant_ratios=(0.5,))
+    return eng, [it.item_id for it in ds.items]
+
+
+@pytest.mark.parametrize("model,ratio,quant", [
+    ("sm", 0.5, False), ("lg", 0.5, False), ("lg", 0.5, True),
+    ("lg", 0.0, False)])
+def test_flush_outputs_do_not_depend_on_the_batch_on_the_card(gpu, tmp_path,
+                                                              model, ratio,
+                                                              quant):
+    """The card twin of tests/test_torch_scheduler.py's batch-invariance
+    test: an item's log-odds and (value, confidence), bit-equal alone and
+    in flushes of 2, 4, ... up to the profile's batch, first and last,
+    with the dense layers at the engine's pinned row count."""
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import flush_invariance
+    eng, ids = _planted_card_engine(tmp_path)
+    assert eng.pin_rows
+    got = flush_invariance(
+        eng, model, ratio, ids[0], ids[1:],
+        filter_args=([syn.filter_query_token(1)], syn.TOK_YES, syn.TOK_NO),
+        map_args=([syn.map_query_token(2)],
+                  [syn.value_token(v) for v in range(8)]), quant=quant)
+    assert all(got.values()), got
+
+
+def test_graph_capture_beside_live_flushes(gpu, tmp_path):
+    """One thread captures and replays the optimizer's CUDA graph while
+    another flushes decode batches through an engine on the same card
+    (the scheduler's case: one query plans while others flush). Neither
+    disturbs the other: the optimizer's result is bit-equal to the same
+    loop run alone, every flush's scores to the same flush alone, and
+    E's replays are counted as alone (202 per plan's loop)."""
+    import threading
+    import numpy as np
+    from repro_torch.core import optimizer as TO
+    from repro_torch.core import relaxation as TR
+    from repro_torch.data import synthetic as syn
+    eng, ids = _planted_card_engine(tmp_path)
+    pipes, g = _planner_world()
+    cfg = TO.PlannerConfig(steps=200, restarts=3)
+    card_pipes = [p._replace(**{f: v.cuda() for f, v in p._asdict().items()
+                                if isinstance(v, torch.Tensor)})
+                  for p in pipes]
+    prob = TO.setup_problem(card_pipes, g, 0.7, 0.7, cfg,
+                            batch_hint=TR.BatchHint(64.0, 4.0))
+
+    def flush(n):
+        return eng.run_filter("lg", 0.5, ids[:n], [syn.filter_query_token(1)],
+                              syn.TOK_YES, syn.TOK_NO)
+
+    sizes = [1, 7, 16, 40] * 10
+    alone_flush = {n: flush(n) for n in set(sizes)}
+    alone = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    names = ("beta_incinv", "beta_incinv_grad_terms")
+    before = [ops.launch_counts()[n] for n in names]
+    errors, busy = [], []
+
+    def flusher():
+        try:
+            for n in sizes:
+                busy.append(np.array_equal(flush(n), alone_flush[n]))
+        except BaseException as e:
+            errors.append(e)
+
+    t = threading.Thread(target=flusher)
+    t.start()
+    beside = TO.adam_loop(prob.loss_fn, prob.flat0, cfg, prob.snap_steps)
+    t.join(timeout=300)
+    assert not errors and len(busy) == len(sizes) and all(busy)
+    assert [ops.launch_counts()[n] - b for n, b in zip(names, before)] \
+        == [2 + 200, 2 + 200]
+    assert torch.equal(beside.flat, alone.flat)
+    assert torch.equal(beside.losses, alone.losses)

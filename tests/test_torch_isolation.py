@@ -24,10 +24,22 @@ def test_port_imports_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels.prefill_attention" in mods
     assert "repro_torch.runtime.tree" in mods
+    for m in ("repro_torch.scheduler", "repro_torch.scheduler.hub",
+              "repro_torch.scheduler.scheduler",
+              "repro_torch.scheduler.tenants"):
+        assert m in mods
+    # the lazy exports resolve too (a module path in a string is an import)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {os.path.abspath(SRC)!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import repro_torch, repro_torch.runtime as R, "
+        "repro_torch.scheduler as S\n"
+        "for mod in (repro_torch, R, S):\n"
+        "    [getattr(mod, n) for n in mod.__all__ if n != '__version__']\n"
+        "assert R.PoolBackend.__module__ == 'repro_torch.runtime.backend'\n"
+        "assert R.EngineTaggedOperator.__module__ == "
+        "'repro_torch.runtime.backend'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -54,4 +66,23 @@ def test_port_sources_never_name_the_jax_package():
                                                          "from repro."))
                             or s in ("import repro", "import jax")):
                         offenders.append(f"{path}:{i}: {s}")
+    assert offenders == []
+
+
+def test_port_sources_name_no_module_of_the_jax_package():
+    """No module path of the JAX package in a string either (lazy
+    exports, importlib): the scheduler's and runtime's PEP 562 tables
+    name `repro_torch.*` only."""
+    import re
+    root = os.path.join(SRC, "repro_torch")
+    pat = re.compile(r"[\"']repro(\.[a-z_]+)*[\"']")
+    offenders = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    for i, line in enumerate(fh, 1):
+                        if pat.search(line):
+                            offenders.append(f"{path}:{i}: {line.strip()}")
     assert offenders == []
