@@ -107,6 +107,38 @@ Phases, one JSON line each:
            profile's batch, with the engine's pinned dense-layer row
            count and without it (fails unless every pinned size is
            equal); and the pin's cost on a warm 8B flush
+  remote_planted  the reference's remote world (tests/test_remote.py):
+           an in-process repro_torch.remote.RemoteWorker serving the
+           planted "fast" tier (sm kv80, kv50) on 127.0.0.1, in a Session
+           whose "accurate" engine is local (EngineSpec(address=)); held
+           to pool_planted's all-local Session: the catalog, every fast
+           operator's scores, and a hand-set plan (first stages on
+           "fast", gold on "accurate") bit-equal under inline, threads:2
+           and three scheduled copies (fewer wire calls than three solo
+           runs); wire calls > 0, no fallback; the EXPLAIN ANALYZE
+           "remote:" footer; the Session planning the quickstart query
+           over the wire; the plan on the CPU equal outside the margin
+  remote_worker_cli  `python -m repro_torch.launch.remote_worker` as a
+           subprocess on the card (its DEVICE line must name CUDA): the
+           hand-set plan bit-equal to remote_planted's, then a SIGKILL
+           mid-run: "fallback" ends on the gold engine with fallbacks > 0,
+           "fail" raises RemoteEngineError and gold still runs. Its
+           launches are the worker's own (reported by its `stats` verb)
+           and are left off the kernels line
+  remote_llama8b  pool_llama8b's pool with its "compressed" tier served
+           by an in-process worker that registers stretto-llama-8b from
+           the same params tensors; "gold" local. A hand-set plan (int8
+           0.5, then bf16 0.5, then gold; thresholds at quantiles of each
+           stage's scores) bit-equal to the all-local pool, inline and
+           threads:2, three scheduled copies, per-engine kv_bytes against
+           each store; the worker's build steps, wire calls, bytes and RTT,
+           each flush's client wall against the worker's server_wall_s,
+           plan / execute s, peak memory (fails if the weights are held
+           twice)
+  serve_planted  repro_torch.launch.serve.main in-process on the card
+           (200 items, 48 requests, concurrency 48: only queries on one
+           task merge their flushes): flushes merged (saved_calls > 0)
+           and every tenant's line printed
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
@@ -119,7 +151,8 @@ Launch counts: every count is set to 0 just before a path is driven and
 read just after. The kernels line carries, per kernel, the sum of its
 counts over the Session paths (the quickstart query and the join, planted
 and 8B, with the scan legs and the hand-set join tree, the pools and the
-scheduler runs over them), and each path's count; D appears once per body (prefill_attention_tc, _fma), with that
+scheduler runs over them, the in-process remote paths with their workers'
+launches, and the serving launcher), and each path's count; D appears once per body (prefill_attention_tc, _fma), with that
 body's counts; E once per entry (beta_incinv, beta_incinv_grad_terms),
 counting each launch a CUDA-graph replay makes, and its bound_ms is one
 FMA latency (4 cycles at 1.98 GHz) per continued-fraction term of its
@@ -2578,6 +2611,618 @@ def phase_flush_invariance(torch, planted, llama):
          pin_cost_8b_flush=cost)
 
 
+# ---------------------------------------------------------------------------
+# remote engine members and the launchers
+# ---------------------------------------------------------------------------
+
+# the worker's identity for the planted "fast" tier: the pool's local
+# "fast" spec (_pool_cfg) with its defaults, so scores are bit-equal
+FAST_WORKER = dict(models=("sm",), sm_ratios=(0.8, 0.5), lg_ratios=())
+# a hand-set plan over the planted pool (tests/test_torch_remote.py): the
+# first stages on "fast", gold on "accurate"; whichever stages a planner
+# keeps rests on measured times (on the card it has kept gold only)
+REMOTE_STAGES = [(0, 0, "fast/sm-kv80", 2.5, -3.0, False, False, "fast"),
+                 (1, 0, "fast/sm-kv50", 1.5, -math.inf, True, False, "fast"),
+                 (0, 1, "accurate/lg-kv50", 3.0, -4.0, False, False,
+                  "accurate"),
+                 (0, 2, "accurate/lg-kv00", 0.0, 0.0, False, True,
+                  "accurate"),
+                 (1, 1, "accurate/lg-kv00", 0.0, 0.0, True, True,
+                  "accurate")]
+
+
+def _plan_of(stages):
+    from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
+    return PhysicalPlan(
+        [PhysicalPlanStage(li, st, op, hi, lo, is_map, gold, 0.1, engine=eng)
+         for li, st, op, hi, lo, is_map, gold, eng in stages],
+        [], 0.0, 1.0, 1.0, True)
+
+
+def _int_stats(r):
+    """Integer StageStats per stage: engine, tuples, LLM calls, batches,
+    kv_bytes."""
+    return {(s.logical_idx, s.stage, s.op_name):
+            (s.engine, s.n_tuples, s.n_llm_calls, s.n_batches, s.kv_bytes)
+            for s in r.stage_stats}
+
+
+DISPATCHERS = ("inline", "threads:2")
+
+
+def _local_runs(plan, query, items, local, engines_l):
+    """The plan run by the all-local pool under each dispatcher, each from
+    a cold LRU: the reference that _remote_parity holds the remote pool
+    to, run outside the remote path's launch-count window."""
+    runs = {}
+    for dispatcher in DISPATCHERS:
+        _evict_all(engines_l)
+        runs[dispatcher] = local.run(plan, query, items,
+                                     dispatcher=dispatcher)
+    return runs
+
+
+def _remote_parity(phase, plan, query, items, want, remote, engines_r,
+                   flushes):
+    """The plan run by the pool with a remote member under each
+    dispatcher, each from a cold LRU, against the all-local runs `want`
+    (_local_runs): bit-equal decisions, map values and integer StageStats,
+    wire calls > 0, no fallback and no error. Returns the remote runs and
+    the wire flushes (_wire_timer's `flushes`) each made, by dispatcher."""
+    runs, by_dispatcher = {}, {}
+    for dispatcher in DISPATCHERS:
+        _evict_all(engines_r)
+        n0 = len(flushes)
+        rr = remote.run(plan, query, items, dispatcher=dispatcher)
+        by_dispatcher[dispatcher] = flushes[n0:]
+        lr = want[dispatcher]
+        if not _same(rr, lr):
+            die(phase, f"{dispatcher}: the remote pool decides differently "
+                       f"from the all-local pool")
+        if _int_stats(rr) != _int_stats(lr):
+            die(phase, f"{dispatcher}: integer StageStats differ: "
+                       f"{_int_stats(rr)} vs {_int_stats(lr)}")
+        _wire_ok(phase, rr.remote)
+        runs[dispatcher] = rr
+    return runs, by_dispatcher
+
+
+def _wire_ok(phase, info):
+    if not info or info["calls"] <= 0 or info["fallbacks"] \
+            or info["errors"]:
+        die(phase, f"wire telemetry shows no call, a fallback or an "
+                   f"error: {info}")
+
+
+def _wire_copies(torch, phase, sess, frame, plan, solo, member, engines):
+    """Three copies of `plan` through a paused QueryScheduler, from a cold
+    LRU: _merge_checks against the solo run, and fewer wire calls than
+    three solo runs make."""
+    _evict_all(engines)
+    b0 = sum(e.store.bytes_loaded for e in engines)
+    c0 = member.snapshot()["calls"]
+    results, stats, wall = _scheduled(torch, sess, [(frame, plan)] * 3, 3)
+    calls = member.snapshot()["calls"] - c0
+    loaded = sum(e.store.bytes_loaded for e in engines) - b0
+    kv, _ = _merge_checks(phase, results, [solo] * 3, stats, loaded)
+    if not calls < 3 * solo.remote["calls"]:
+        die(phase, f"{calls} wire calls for three copies, "
+                   f"{solo.remote['calls']} solo")
+    return dict(wall_s=wall, wire_calls=calls,
+                solo_wire_calls=solo.remote["calls"], kv_bytes=kv,
+                **{k: stats[k] for k in ("n_calls", "n_flushes",
+                                         "n_merged_calls")})
+
+
+def _wire_timer(member):
+    """Record each scoring call of `member`: (client wall, the worker's
+    server_wall_s) in seconds; their difference is the wire's share.
+    Returns the list and a function that puts the member's call back."""
+    flushes, real = [], member._call
+
+    def timed(msg, **kw):
+        t0 = time.perf_counter()
+        resp = real(msg, **kw)
+        if msg["verb"] in ("score_filter", "run_map"):
+            flushes.append((time.perf_counter() - t0,
+                            resp["stats"]["server_wall_s"]))
+        return resp
+    member._call = timed
+    return flushes, lambda: setattr(member, "_call", real)
+
+
+def _wire_share(flushes):
+    """Each flush's client and worker ms, and the wire's share of the
+    client wall over them all. The worker times a call once it holds its
+    one-call lock, so a flush that queued behind another's call (threads:2)
+    counts its wait as wire."""
+    return {"flush_ms_client_worker": [(1e3 * c, 1e3 * w)
+                                       for c, w in flushes],
+            "wire_share": sum(c - w for c, w in flushes)
+            / max(sum(c for c, _ in flushes), 1e-12)}
+
+
+def _check_path(phase, counts, chunks, names):
+    if counts["expected_attention_scores"] != chunks:
+        die(phase, f"{counts['expected_attention_scores']} launches of C "
+                   f"for {chunks} prefill chunks")
+    for name in names:
+        if counts[name] <= 0:
+            die(phase, f"the path launched no {name}: {counts}")
+
+
+def phase_remote_planted(torch, planted):
+    """The reference's remote world (tests/test_remote.py:230-270) on the
+    card: an in-process worker serving the planted "fast" tier on
+    127.0.0.1, joined by a Session whose "accurate" engine (lg kv50 and
+    the gold) is local. Held to pool_planted's all-local Session: the
+    catalog (names, gold flags, costs), every fast operator's scores, and
+    a hand-set plan (inline, threads:2, and three scheduled copies)
+    bit-equal; the EXPLAIN ANALYZE footer; the Session planning the
+    quickstart query over the wire; the plan on the CPU equal outside
+    the margin."""
+    from dataclasses import replace
+    import numpy as np
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.api.result import QueryResult
+    from repro_torch.core.logical import SemMap
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.remote import RemoteWorker, remote_members, start_server
+
+    local, items, lframe, _ = planted
+    query = lframe.to_query()
+    plan = _plan_of(REMOTE_STAGES)
+    root = os.path.join(WORK, "remote-planted")
+
+    # the all-local pool's side of every comparison, before the remote
+    # path's launch-count window opens: the catalog, every fast
+    # operator's scores item by item, the hand plan by dispatcher
+    local_ops = []
+    for op in query.semantic_ops:
+        lc = local.backend.candidates(op)
+        fast = {}
+        for c in lc:
+            if c.name.startswith("fast/"):
+                fast[c.name] = (local.backend.run_map(op, c.name, items)
+                                if isinstance(op, SemMap) else
+                                local.backend.score_filter(op, c.name, items))
+        local_ops.append((op, [(c.name, c.is_gold, c.cost_model())
+                               for c in lc], fast))
+    engines_l = list(local.engines.values())
+    want = _local_runs(plan, query, items, local, engines_l)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    worker = RemoteWorker("fast", cache_dir=os.path.join(root, "worker"),
+                          **FAST_WORKER)
+    server, _, addr = start_server(worker)
+    accurate = next(s for s in local.engine_specs if s.name == "accurate")
+    remote = Session(SessionConfig(
+        engines=(EngineSpec("fast", address=addr),
+                 replace(accurate, dispatcher=None,
+                         cache_dir=os.path.join(root, "accurate"))),
+        gold_engine="accurate",
+        planner=PlannerConfig(steps=120, restarts=2, snapshots=2),
+        sample_frac=0.35, partition_size=40))
+    try:
+        t0 = time.perf_counter()
+        remote.prepare(items)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        member = remote_members(remote.backend)[0]
+        engines_r = [worker.engine, *remote.engines.values()]
+        if set(remote.engines) != {"accurate"}:
+            die("remote_planted", f"the Session built a local engine for "
+                                  f"the remote spec: {set(remote.engines)}")
+
+        # the catalog and every fast operator, item by item
+        n_ops = 0
+        for op, catalog, fast in local_ops:
+            rc = remote.backend.candidates(op)
+            if [(c.name, c.is_gold, c.cost_model()) for c in rc] != catalog:
+                die("remote_planted", f"the catalog differs from the local "
+                                      f"candidates for {op}")
+            for name, got in fast.items():
+                if isinstance(op, SemMap):
+                    same = all(np.array_equal(a, b) for a, b in zip(
+                        remote.backend.run_map(op, name, items), got))
+                else:
+                    same = np.array_equal(
+                        remote.backend.score_filter(op, name, items), got)
+                if not same:
+                    die("remote_planted", f"{name} scores differ over "
+                                          f"the wire")
+                n_ops += 1
+
+        flushes, restore = _wire_timer(member)
+        try:
+            runs, hand_flushes = _remote_parity(
+                "remote_planted", plan, query, items, want, remote,
+                engines_r, flushes)
+        finally:
+            restore()
+        inline = runs["inline"]
+        text = QueryResult(remote, query, items, inline) \
+            .explain_analyze().render()
+        if "remote: calls=" not in text or "remote fast: calls=" not in text:
+            die("remote_planted", "EXPLAIN ANALYZE has no remote footer")
+        frame = _frame(remote, items)
+        sched = _wire_copies(torch, "remote_planted", remote, frame, plan,
+                             inline, member, engines_r)
+
+        # the Session plans the quickstart query over the wire (its
+        # profiling scores the remote operators; the optimizer runs E)
+        t0 = time.perf_counter()
+        report = frame.explain()
+        plan_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+
+        cpu_sess, _ = _cpu_pool(_pool_cfg(os.path.join(WORK,
+                                                       "pool-planted")))
+        cpu = cpu_sess.run(plan, query, items, dispatcher="inline")
+        cpu_same, all_same, n_near = _linear_card_vs_cpu(
+            "remote_planted", remote, plan, query, items, inline, cpu)
+        cpu_sess.close()
+        stats = member.worker_stats()
+    finally:
+        remote.close()
+        server.shutdown()
+        server.server_close()
+    _check_path("remote_planted", counts, sum(
+        e.prefill_chunks for e in engines_r), (
+        "decode_query_attention", "prefill_attention", "beta_incinv"))
+    if worker.engine.attn_dispatches <= 0:
+        die("remote_planted", "the worker's engine dispatched no decode "
+                              "attention")
+    emit("remote_planted", ok=True, items=len(items), address=addr,
+         build_s=build_s, worker_build_steps_s=worker.engine.build_seconds,
+         fast_ops_bit_equal=n_ops, inline_threads_bit_equal=True,
+         remote=inline.remote,
+         hand_wire={d: _wire_share(f) for d, f in hand_flushes.items()},
+         scheduler=sched, plan_s=plan_s,
+         planned_stages=[(s.op_name, s.engine) for s in report.stages],
+         footer=[ln for ln in text.splitlines() if "remote" in ln],
+         cpu_equal_outside_margin=cpu_same, cpu_equal_everywhere=all_same,
+         n_near_margin=n_near, margin=MARGIN, worker_stats=stats,
+         prefill_chunks={"worker": worker.engine.prefill_chunks,
+                         "accurate": remote.engines[
+                             "accurate"].prefill_chunks},
+         launches=counts,
+         stage_stats=[s.as_dict() for s in inline.stage_stats])
+    return counts, inline
+
+
+def phase_remote_worker_cli(torch, planted, want):
+    """`python -m repro_torch.launch.remote_worker` as a subprocess on the
+    card (remote/testing.spawn_worker): its DEVICE line must name CUDA;
+    the hand-set plan through it bit-equal to remote_planted's; then the
+    worker is SIGKILLed mid-run: on_unavailable="fallback" completes on
+    the gold engine with fallbacks > 0, "fail" raises RemoteEngineError
+    and the Session still runs gold. The worker's launches are its own
+    (its `stats` verb reports attn_dispatches); none reach the kernels
+    line."""
+    import signal
+    from dataclasses import replace
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.remote import RemoteEngineError, remote_members
+    from repro_torch.remote.testing import spawn_worker
+    from repro_torch.runtime import gold_plan_for
+
+    local, items, lframe, _ = planted
+    query = lframe.to_query()
+    plan = _plan_of(REMOTE_STAGES)
+    accurate = next(s for s in local.engine_specs if s.name == "accurate")
+    root = os.path.join(WORK, "remote-cli")
+    t0 = time.perf_counter()
+    proc, addr = spawn_worker(timeout_s=300, name="fast", extra=(
+        "--cache-dir", os.path.join(root, "worker")), **FAST_WORKER)
+    start_s = time.perf_counter() - t0
+
+    def session(tag, **kw):
+        return Session(SessionConfig(
+            engines=(EngineSpec("fast", address=addr, **kw),
+                     replace(accurate, dispatcher=None,
+                             cache_dir=os.path.join(root, tag))),
+            gold_engine="accurate", partition_size=40))
+
+    fb, fail = session("fb", remote_retries=1, on_unavailable="fallback"), \
+        session("ff", remote_retries=0, on_unavailable="fail")
+    try:
+        if not str(proc.device).startswith("cuda"):
+            die("remote_worker_cli", f"the worker runs on {proc.device}")
+        t0 = time.perf_counter()
+        for sess in (fb, fail):
+            sess.prepare(items)
+            for op in query.semantic_ops:
+                sess.backend.candidates(op)
+        sync_s = time.perf_counter() - t0
+        same = fb.run(plan, query, items, dispatcher="inline")
+        if not (_same(same, want) and _tiles(same, want)):
+            die("remote_worker_cli", "the subprocess worker decides "
+                                     "differently from remote_planted")
+        _wire_ok("remote_worker_cli", same.remote)
+        member = remote_members(fb.backend)[0]
+        stats = member.worker_stats()
+
+        gen = fb.iter_run(plan, query, items, partition_size=30, coalesce=1,
+                          dispatcher="inline")
+        next(gen)                               # partition 1 over the wire
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        result = None
+        try:
+            while True:
+                next(gen)
+        except StopIteration as stop:
+            result = stop.value
+        snap = member.snapshot()
+        if result is None or result.accepted.shape != (len(items),) \
+                or snap["fallbacks"] <= 0:
+            die("remote_worker_cli", f"the run did not complete on the "
+                                     f"gold fallback: {snap}")
+        try:
+            fail.run(plan, query, items, dispatcher="inline")
+            die("remote_worker_cli", "on_unavailable='fail' did not raise")
+        except RemoteEngineError as exc:
+            if not exc.transport:
+                die("remote_worker_cli", f"not a transport error: {exc}")
+            raised = str(exc)
+        gold = fail.run(gold_plan_for(query, fail.backend), query, items,
+                        dispatcher="inline")
+        if gold.remote is not None or gold.accepted.shape != (len(items),):
+            die("remote_worker_cli", "the Session does not run gold after "
+                                     "the failure")
+    finally:
+        proc.kill()
+        fb.close()
+        fail.close()
+    emit("remote_worker_cli", ok=True, device=proc.device, address=addr,
+         start_s=start_s, sync_s=sync_s, bit_equal_remote_planted=True,
+         remote=same.remote, worker_stats=stats,
+         fallback=dict(fallbacks=snap["fallbacks"],
+                       retries=snap["retries"], errors=snap["errors"]),
+         fail_raised=raised[:200])
+
+
+def _worker_8b_class():
+    """A RemoteWorker serving stretto-llama-8b from given params tensors
+    (the weights once), ladder and device LRU as pool_llama8b's
+    "compressed" engine."""
+    from repro_torch.configs.stretto_llama_8b import CONFIG as cfg8
+    from repro_torch.remote import RemoteWorker
+
+    class Llama8bWorker(RemoteWorker):
+        def __init__(self, params, build, **kw):
+            self._params, self._build = params, build
+            super().__init__(**kw)
+            self.engine.device_cache = False
+
+        def register_models(self):
+            self.engine.register_model("lg", cfg8, self._params)
+
+        def _ladder(self):
+            return list(self._build)
+    return Llama8bWorker
+
+
+def _hand_8b_plan(member, items, filt, mapper):
+    """The hand-set 8B plan: the filter's first stage on the remote
+    tier's int8 0.5 rung, then its bf16 0.5 rung, then gold; the map's on
+    the bf16 0.5 rung, then gold. Random weights put the log-odds
+    anywhere, so each threshold is a quantile of its stage's scores over
+    the corpus: about a third of the tuples decide at each early stage."""
+    import numpy as np
+    i8 = member.score_filter(filt, "lg-kv50i8", items)
+    bf = member.score_filter(filt, "lg-kv50", items)
+    _, conf = member.run_map(mapper, "lg-kv50", items)
+    q = lambda s, p: float(np.quantile(s, p))
+    return _plan_of(
+        [(0, 0, "compressed/lg-kv50i8", q(i8, 5 / 6), q(i8, 1 / 6), False,
+          False, "compressed"),
+         (0, 1, "compressed/lg-kv50", q(bf, 3 / 4), q(bf, 1 / 4), False,
+          False, "compressed"),
+         (0, 2, "gold/lg-kv00", 0.0, 0.0, False, True, "gold"),
+         (1, 0, "compressed/lg-kv50", q(conf, 1 / 2), -math.inf, True,
+          False, "compressed"),
+         (1, 1, "gold/lg-kv00", 0.0, 0.0, True, True, "gold")])
+
+
+def phase_remote_llama8b(torch, params, llama):
+    """pool_llama8b's pool with its "compressed" tier (lg 0.5, int8 0.5)
+    served by an in-process worker on 127.0.0.1, registering
+    stretto-llama-8b from the same params tensors; "gold" (0.8, gold) is
+    pool_llama8b's own engine, local. The hand-set plan (_hand_8b_plan)
+    bit-equal to the all-local pool's run of it, three scheduled copies,
+    per-engine kv_bytes against each store; the worker's build steps, the
+    wire (calls, bytes, RTT, each flush's client wall against the
+    worker's server_wall_s), plan / execute s, peak memory."""
+    from repro_torch.api import Session, SessionConfig
+    from repro_torch.api.result import QueryResult
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.remote import RemoteEngineMember, start_server
+    from repro_torch.remote.client import remote_run_info
+    from repro_torch.runtime.backend import (KVCacheBackend, PoolBackend,
+                                             ReferenceBackend)
+
+    lsess, items, frame_l, _, _, engines = llama
+    weights_gb = _weights_bytes(params) / 1e9
+    rung = POOL_8B["compressed"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    worker = _worker_8b_class()(
+        params, rung["build"], name="compressed", models=("lg",),
+        sm_ratios=(), lg_ratios=rung["lg_ratios"], lg_int8=rung["lg_int8"],
+        include_cheap=False, prefill_batch=4,
+        cache_dir=os.path.join(WORK, "remote-8b"))
+    server, _, addr = start_server(worker)
+    member = RemoteEngineMember("compressed", addr)
+    gold = KVCacheBackend(engines["gold"], sm="lg", lg="lg", sm_ratios=(),
+                          lg_ratios=POOL_8B["gold"]["lg_ratios"],
+                          include_cheap=False)
+    pool = PoolBackend([("compressed", member), ("gold", gold)], gold="gold")
+    member.set_fallback(pool.members["gold"])
+    sess = Session(SessionConfig(planner=PlannerConfig(steps=200,
+                                                       restarts=3)),
+                   backend=pool, reference=ReferenceBackend(engines["gold"],
+                                                            lg="lg"))
+    flushes, restore = _wire_timer(member)
+    try:
+        t0 = time.perf_counter()
+        member.sync(items)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        if worker.engine.models["lg"].params is not \
+                engines["gold"].models["lg"].params:
+            die("remote_llama8b", "the worker holds its own weights")
+        frame = _frame(sess, items)
+        query = frame.to_query()
+        filt, mapper = query.semantic_ops
+        plan = _hand_8b_plan(member, items, filt, mapper)
+        remote_engines = {"compressed": worker.engine, "gold": engines["gold"]}
+        local_engines = {"compressed": engines["compressed"],
+                         "gold": engines["gold"]}
+
+        def run(s, name_engines, dispatcher):
+            _evict_all(name_engines.values())
+            before = {n: e.store.bytes_loaded
+                      for n, e in name_engines.items()}
+            snap = {"compressed": member.snapshot()}
+            r = s.run(plan, query, items, dispatcher=dispatcher)
+            r.remote = remote_run_info(snap, {"compressed":
+                                              member.snapshot()})
+            return r, before
+
+        n_flushes0 = len(flushes)
+        t0 = time.perf_counter()
+        rr, before = run(sess, remote_engines, "inline")
+        torch.cuda.synchronize()
+        execute_hand_s = time.perf_counter() - t0
+        per, deltas = _engine_totals_check(
+            "remote_llama8b", QueryResult(sess, query, items, rr), before,
+            remote_engines)
+        hand_flushes = flushes[n_flushes0:]
+        _wire_ok("remote_llama8b", rr.remote)
+        threads, _ = run(sess, remote_engines, "threads:2")
+        if not (_same(threads, rr) and _int_stats(threads) ==
+                _int_stats(rr)):
+            die("remote_llama8b", "inline and threads:2 differ")
+        stages_used = {s.op_name for s in rr.stage_stats if s.n_tuples}
+        if not {"compressed/lg-kv50i8", "compressed/lg-kv50",
+                "gold/lg-kv00"} <= stages_used:
+            die("remote_llama8b", f"a stage of the hand plan saw no tuple: "
+                                  f"{stages_used}")
+
+        sched = _wire_copies(torch, "remote_llama8b", sess, frame, plan, rr,
+                             member, list(remote_engines.values()))
+
+        # the Session plans the quickstart query over the wire, then runs
+        t1 = time.perf_counter()
+        report = frame.explain()
+        t2 = time.perf_counter()
+        result = frame.execute()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = ops.launch_counts()
+        snap = member.snapshot()
+
+        # the all-local pool's run of the hand plan, after the remote
+        # path's launch-count window
+        lr, _ = run(lsess, local_engines, "inline")
+        if not (_same(rr, lr) and _int_stats(rr) == _int_stats(lr)):
+            die("remote_llama8b", f"the hand plan differs from the all-local "
+                                  f"pool: {_int_stats(rr)} vs "
+                                  f"{_int_stats(lr)}")
+    finally:
+        restore()
+        member.close()
+        server.shutdown()
+        server.server_close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= 2 * weights_gb:
+        die("remote_llama8b", f"peak {peak_gb} GB for {weights_gb} GB of "
+                              f"weights: held twice")
+    _check_path("remote_llama8b", counts, worker.engine.prefill_chunks, (
+        "decode_query_attention", "decode_query_attention_int8",
+        "prefill_attention", "beta_incinv"))
+    if result.accepted.shape != (len(items),):
+        die("remote_llama8b", "result has the wrong shape")
+    rtts = sorted(snap["rtt_recent"])
+    emit("remote_llama8b", ok=True, items=len(items),
+         item_tokens=SESSION_8B_LEN, sync_s=sync_s,
+         worker_build_steps_s=worker.engine.build_seconds,
+         hand_plan=[(s.op_name, s.thr_hi, s.thr_lo) for s in plan.stages],
+         execute_hand_s=execute_hand_s, remote=rr.remote,
+         engine_totals=per, store_kv_deltas=deltas,
+         hand_wire=_wire_share(hand_flushes),
+         wire_all_calls=dict(calls=snap["calls"],
+                         bytes_sent=snap["bytes_sent"],
+                         bytes_recv=snap["bytes_recv"],
+                         rtt_ms_p50=1e3 * rtts[len(rtts) // 2],
+                         rtt_ms_p95=1e3 * rtts[min(int(0.95 * len(rtts)),
+                                                   len(rtts) - 1)]),
+         scheduler=sched,
+         plan_s=t2 - t1, execute_s=t3 - t2,
+         planned_stages=[(s.op_name, s.engine) for s in report.stages],
+         weights_gb=weights_gb, peak_mem_gb=peak_gb,
+         prefill_chunks=worker.engine.prefill_chunks, launches=counts,
+         stage_stats=[s.as_dict() for s in rr.stage_stats])
+    sess.close()
+    shutil.rmtree(os.path.join(WORK, "remote-8b"), ignore_errors=True)
+    return counts
+
+
+SERVE_ITEMS, SERVE_BATCH = 200, 16
+
+
+def phase_serve_planted(torch):
+    """The concurrent serving launcher in-process on the card:
+    repro_torch.launch.serve.main over 200 planted items, 48 requests at
+    concurrency 48. The hub merges flushes of one (engine, operator,
+    semantic operator) only, so only requests on the same filter task can
+    share a call: the launcher's first 6 draws are 6 distinct tasks. Two
+    such requests merge when both have their plan while the other's
+    flushes wait, and plans are made one at a time (Session.plan holds
+    the session's lock), so the run needs many repeats: 48 draws repeat
+    each of the 10 tasks. Its flushes must merge (saved_calls > 0) and
+    every tenant's line must be printed."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--items", str(SERVE_ITEMS), "--requests", "48",
+                         "--concurrency", "48", "--cache-dir",
+                         os.path.join(WORK, "serve")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    text = out.getvalue()
+    lines = text.splitlines()
+    saved = re.search(r"\((\d+) saved by coalescing\)", text)
+    tenants = [ln for ln in lines if ln.startswith("[serve]   tenant ")]
+    if rc != 0 or saved is None or int(saved.group(1)) <= 0:
+        die("serve_planted", f"no flush merged: {lines[-5:]}")
+    if {ln.split()[2] for ln in tenants} != {"premium", "standard", "batch"}:
+        die("serve_planted", f"a tenant line is missing: {tenants}")
+    if "on cuda" not in lines[0]:
+        die("serve_planted", f"the launcher ran elsewhere: {lines[0]}")
+    # two planted models, each prefilled in chunks of the default batch
+    _check_path("serve_planted", counts,
+                2 * math.ceil(SERVE_ITEMS / SERVE_BATCH),
+                ("decode_query_attention", "prefill_attention",
+                 "beta_incinv"))
+    emit("serve_planted", ok=True, wall_s=wall, saved_calls=int(
+        saved.group(1)), output=lines, launches=counts)
+    return counts
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -2680,13 +3325,18 @@ def main() -> int:
                                                                    params)
         paths["pool_planted"], planted = phase_pool_planted(torch)
         paths["scheduler_planted"] = phase_scheduler_planted(torch, planted)
+        paths["remote_planted"], remote_run = phase_remote_planted(torch,
+                                                                   planted)
+        phase_remote_worker_cli(torch, planted, remote_run)
         paths["pool_llama8b"], llama = phase_pool_llama8b(torch, params)
         paths["scheduler_llama8b"] = phase_scheduler_llama8b(torch, llama)
+        paths["remote_llama8b"] = phase_remote_llama8b(torch, params, llama)
         phase_flush_invariance(torch, planted, llama)
         planted[0].close()
         llama[0].close()
         del planted, llama, params
         torch.cuda.empty_cache()
+        paths["serve_planted"] = phase_serve_planted(torch)
         _check_prefill_bodies(paths)
         rows.update(phase_planner(torch, problems))
     finally:

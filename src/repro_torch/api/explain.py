@@ -1,8 +1,7 @@
 """EXPLAIN / EXPLAIN ANALYZE: structured plan report + table renderer.
 
-The port of `repro.api.explain` (ExplainReport with its scheduler
-footer, and the tree-shaped TreeExplainReport; the remote footer waits
-with remote members).
+The port of `repro.api.explain` (ExplainReport with its scheduler and
+remote footers, and the tree-shaped TreeExplainReport).
 
 `SemFrame.explain()` returns an ExplainReport — the logical plan, the
 physical cascade in execution order (thresholds, expected coalesced batch,
@@ -138,6 +137,10 @@ class ExplainReport:
     # scheduler footer (key, value) pairs attached by with_scheduler()
     # when the result came through concurrent admission
     scheduler_info: Tuple[Tuple[str, Any], ...] = ()
+    # remote footer (key, value) pairs attached by with_remote() when the
+    # run touched remote engine members (wire calls, retries, fallbacks,
+    # rtt percentiles, bytes on wire)
+    remote_info: Tuple[Tuple[str, Any], ...] = ()
 
     @property
     def analyzed(self) -> bool:
@@ -252,6 +255,13 @@ class ExplainReport:
         info = sched.as_dict() if hasattr(sched, "as_dict") else dict(sched)
         return replace(self, scheduler_info=tuple(info.items()))
 
+    def with_remote(self, remote) -> "ExplainReport":
+        """Attach per-run remote-engine telemetry (the RuntimeResult's
+        `remote` dict from repro_torch.remote.client.remote_run_info) so
+        ANALYZE renders a "remote:" footer: wire calls, retries,
+        fallbacks, rtt_ms p50/p95, and bytes on wire — per engine."""
+        return replace(self, remote_info=tuple(dict(remote).items()))
+
     def rows(self) -> List[Dict[str, Any]]:
         """The stage table as dicts (execution order)."""
         return [s.as_dict() for s in self.stages]
@@ -354,6 +364,21 @@ class ExplainReport:
                         f"  engine {eng or '--'}: wall_s={wall:.2f} "
                         f"tuples={tuples} llm_calls={llm} "
                         f"kvMB={kv / 1e6:.1f}")
+            if self.remote_info:
+                info = dict(self.remote_info)
+                out.append(
+                    f"remote: calls={info.get('calls', 0)} "
+                    f"retries={info.get('retries', 0)} "
+                    f"fallbacks={info.get('fallbacks', 0)} "
+                    f"rtt_ms p50={info.get('rtt_ms_p50', 0.0)} "
+                    f"p95={info.get('rtt_ms_p95', 0.0)} "
+                    f"wire_kb={info.get('wire_kb', 0.0)}")
+                for eng, d in sorted((info.get("engines") or {}).items()):
+                    out.append(
+                        f"  remote {eng}: calls={d.get('calls', 0)} "
+                        f"retries={d.get('retries', 0)} "
+                        f"fallbacks={d.get('fallbacks', 0)} "
+                        f"wire_kb={d.get('wire_kb', 0.0)}")
             if self.scheduler_info:
                 info = dict(self.scheduler_info)
                 tenant = info.pop("tenant", "default")

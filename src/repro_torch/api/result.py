@@ -175,6 +175,8 @@ class QueryResult:
         report = ExplainReport.from_plan(self.session, self.query,
                                          self.items, plan)
         report = report.with_measured(self.raw)
+        if getattr(self.raw, "remote", None):
+            report = report.with_remote(self.raw.remote)
         if self.sched is not None:
             report = report.with_scheduler(self.sched)
         return report

@@ -29,8 +29,9 @@ per step, and a `device="cpu"` session plans eagerly on the host.
 Join trees go through `plan_tree` / `run_tree` / `gold_tree` (and
 `SemFrame.sem_join`). `Session.scheduler()` admits concurrent queries
 under the tenants of `SessionConfig.tenants` (see repro_torch.scheduler).
-Remote engine members (`EngineSpec.address`) are not ported yet: they
-raise NotImplementedError and are queued in ROADMAP queue 1.
+A spec with `address="host:port"` is a remote engine member, served by a
+`repro_torch.launch.remote_worker` process over the wire protocol (see
+repro_torch.remote); the gold engine stays local.
 
 The Session compiles to, and never bypasses, the internal layer: plans
 come from `core.planner.plan_query`, execution goes through
@@ -60,12 +61,6 @@ from repro_torch.runtime.executor import RuntimeResult, iter_plan, run_plan
 from repro_torch.runtime.plan_utils import gold_plan_for
 
 _UNSET = object()     # "inherit the session default" sentinel
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1: remote "
-        f"members come in a later slice)")
 
 
 def _affinity_workers(dispatcher) -> Optional[int]:
@@ -128,13 +123,31 @@ class EngineSpec:
       async_h2d        — overlap H2D copies with decode (None:
                          STRETTO_ASYNC_H2D, default on). Never changes
                          results.
-      device           — the torch device the engine runs on ("cuda" by
-                         default; "cpu" runs the plain kernel versions)
+      device           — the torch device the engine runs on (None, the
+                         default, resolves to "cuda"; "cpu" runs the plain
+                         kernel versions). A remote engine is placed by
+                         its worker: address= with a device is an error
       sm_int8 / lg_int8 — compression ratios to ALSO store as int8
                          quantized profiles; each becomes a distinct
                          cascade candidate (operator suffix ``i8``) whose
                          flushes launch the int8 decode kernels
-      address          — a remote engine member; not ported yet (raises)
+      address          — serve this engine REMOTELY: "host:port" of a
+                         running `repro_torch.launch.remote_worker` (which
+                         owns the actual model zoo / ladder / store /
+                         device — launch it with the same values for
+                         bit-parity with a local spec). The session builds
+                         no local engine for the slot; the pool member
+                         becomes a RemoteEngineMember whose flushes go
+                         over the wire. Mutually exclusive with `device`
+                         and `dispatcher` affinity. The gold engine must
+                         stay local (fallback + reference execution need
+                         an in-process engine).
+      on_unavailable   — remote degradation policy: "fallback" (default)
+                         re-routes failed flushes to the gold/local
+                         engine mid-run and records it in telemetry;
+                         "fail" raises RemoteEngineError
+      timeout_s        — per-call wire timeout for a remote engine
+      remote_retries   — transport retries per idempotent remote call
     """
     name: str
     models: Tuple[str, ...] = ("sm", "lg")
@@ -153,17 +166,45 @@ class EngineSpec:
     fused: Optional[bool] = None
     device_cache: Optional[bool] = None
     async_h2d: Optional[bool] = None
-    device: Any = "cuda"
+    device: Any = None
     sm_int8: Tuple[float, ...] = ()
     lg_int8: Tuple[float, ...] = ()
     address: Optional[str] = None
+    on_unavailable: str = "fallback"
+    timeout_s: float = 30.0
+    remote_retries: int = 2
 
     def __post_init__(self):
         if not self.name or not isinstance(self.name, str):
             raise ValueError("EngineSpec.name must be a non-empty string")
         if self.address is not None:
-            _not_ported(f"engine {self.name!r}: a remote engine member "
-                        f"(EngineSpec.address)")
+            if ":" not in self.address:
+                raise ValueError(
+                    f"engine {self.name!r}: address must be 'host:port', "
+                    f"got {self.address!r}")
+            # a remote engine's placement/affinity belongs to its worker
+            # process — declaring both is a contradiction
+            if self.device is not None:
+                raise ValueError(
+                    f"engine {self.name!r}: address= and device= are "
+                    f"mutually exclusive — a remote engine is placed by "
+                    f"its worker process, not this session")
+            if self.dispatcher is not None:
+                raise ValueError(
+                    f"engine {self.name!r}: address= and dispatcher= "
+                    f"affinity are mutually exclusive — a remote "
+                    f"engine's flushes run on its worker, not a local "
+                    f"thread pool")
+        if self.on_unavailable not in ("fallback", "fail"):
+            raise ValueError(
+                f"engine {self.name!r}: on_unavailable must be "
+                f"'fallback' or 'fail', got {self.on_unavailable!r}")
+        if self.timeout_s <= 0:
+            raise ValueError(f"engine {self.name!r}: timeout_s must be "
+                             f"positive, got {self.timeout_s}")
+        if self.remote_retries < 0:
+            raise ValueError(f"engine {self.name!r}: remote_retries must "
+                             f"be >= 0, got {self.remote_retries}")
         if self.kernels is not None:
             from repro_torch.kernels.ops import VALID_BACKENDS
             if self.kernels not in VALID_BACKENDS:
@@ -309,6 +350,18 @@ class SessionConfig:
                 raise ValueError(
                     f"gold_engine {self.gold_engine!r} is not a declared "
                     f"engine (engines: {names})")
+        specs = self.resolved_engines()
+        gold = self.gold_engine if self.gold_engine is not None \
+            else specs[0].name
+        gold_spec = next(s for s in specs if s.name == gold)
+        if gold_spec.address is not None:
+            raise ValueError(
+                f"gold engine {gold!r} is remote (address="
+                f"{gold_spec.address!r}) — the gold engine must be local: "
+                f"it anchors the quality reference and serves as the "
+                f"on_unavailable='fallback' target, both of which need an "
+                f"in-process engine. Declare a local gold engine (or set "
+                f"gold_engine to a local spec).")
         if self.tenants is not None:
             from repro_torch.scheduler.tenants import validate_tenants
             object.__setattr__(self, "tenants",
@@ -407,6 +460,9 @@ class Session:
         self._specs_by_name = {s.name: s for s in self.engine_specs}
         self.gold_engine_name: str = config.gold_engine \
             if config.gold_engine is not None else self.engine_specs[0].name
+        # remote engine members (EngineSpec(address=...)), built alongside
+        # the pool backend; profile sync rides on prepare()
+        self._remote_members: Dict[str, Any] = {}
         self._engine_workers: Dict[str, int] = {}
         for spec in self.engine_specs:
             w = _affinity_workers(spec.dispatcher)
@@ -429,7 +485,12 @@ class Session:
             self.engine = engine
         else:
             self.engines = self._build_engines()
-            self.engine = self.engines[self.engine_specs[0].name]
+            # the session's "primary" engine: the first *local* spec's
+            # (remote specs build no in-process engine; the gold engine
+            # is guaranteed local, so this always resolves)
+            first_local = next(s.name for s in self.engine_specs
+                               if s.name in self.engines)
+            self.engine = self.engines[first_local]
         self.backend: Backend = as_backend(backend) \
             if backend is not None else self._default_backend()
         if reference is not None:
@@ -461,6 +522,8 @@ class Session:
         from repro_torch.serving.engine import ServingEngine
         engines: Dict[str, Any] = {}
         for spec in self.engine_specs:
+            if spec.address is not None:
+                continue            # served by a remote worker process
             cache_dir = spec.cache_dir
             if cache_dir is None:
                 cache_dir = tempfile.mkdtemp(
@@ -495,6 +558,8 @@ class Session:
         if self._affinity_disp is not None:
             self._affinity_disp.close()
             self._affinity_disp = None
+        for member in self._remote_members.values():
+            member.close()
         for d in self._owned_cache_dirs:
             shutil.rmtree(d, ignore_errors=True)
         self._owned_cache_dirs = []
@@ -555,7 +620,7 @@ class Session:
         ladder), plus its int8 rungs. Safe to call repeatedly — and from
         concurrent scheduler queries — each (engine, corpus, ladder) is
         built once."""
-        if not self.engines:
+        if not self.engines and not self._remote_members:
             return                      # backend-only session: nothing to do
         with self._state_lock:
             self._prepare_locked(items, ratios)
@@ -581,6 +646,14 @@ class Session:
                                    prefill_batch=spec.prefill_batch,
                                    quant_ratios=sorted(quant))
             self._prepared.add(key)
+        # remote members: corpus sync (the worker builds its own ladder
+        # lazily on first sync; a hash-matched re-sync is one round trip)
+        for name, member in self._remote_members.items():
+            key = ("remote", name, self._corpus_key(items))
+            if key in self._prepared:
+                continue
+            member.sync(items)
+            self._prepared.add(key)
 
     def _ensure_prepared(self, items: Sequence[Any]) -> None:
         # adopted engines manage their own profiles; session-owned
@@ -603,6 +676,11 @@ class Session:
                                "externally supplied backend")
         name = engine if engine is not None else self.engine_specs[0].name
         spec = self._specs_by_name.get(name)
+        if spec is not None and spec.address is not None:
+            raise ValueError(
+                f"engine {name!r} is remote (address={spec.address!r}) — "
+                f"it has no local KVCacheBackend; its candidate ladder "
+                f"lives on the worker and is reached through the pool")
         if spec is None or name not in self.engines:
             raise ValueError(f"unknown engine {name!r}; session engines: "
                              f"{sorted(self.engines)}")
@@ -622,11 +700,27 @@ class Session:
         if len(self.engine_specs) == 1:
             return self.backend_for()
         from repro_torch.runtime.backend import PoolBackend
-        return PoolBackend(
-            [(spec.name, self.backend_for(engine=spec.name))
-             for spec in self.engine_specs],
-            gold=self.gold_engine_name,
+        members = []
+        for spec in self.engine_specs:
+            if spec.address is not None:
+                from repro_torch.remote.client import RemoteEngineMember
+                member = RemoteEngineMember(
+                    spec.name, spec.address, timeout_s=spec.timeout_s,
+                    retries=spec.remote_retries,
+                    on_unavailable=spec.on_unavailable)
+                self._remote_members[spec.name] = member
+            else:
+                member = self.backend_for(engine=spec.name)
+            members.append((spec.name, member))
+        pool = PoolBackend(
+            members, gold=self.gold_engine_name,
             cost_scales={s.name: s.cost_scale for s in self.engine_specs})
+        # a remote member's on_unavailable='fallback' re-routes failed
+        # flushes to the gold/local member — always safe: gold scores
+        # never degrade decisions (gold is the quality reference)
+        for member in self._remote_members.values():
+            member.set_fallback(pool.members[self.gold_engine_name])
+        return pool
 
     # ---------------- query building ----------------
 
@@ -744,6 +838,8 @@ class Session:
                 "profiles against session.backend, which is not the "
                 "backend this run would execute on")
         kwargs = self._exec_kwargs(partition_size, coalesce, dispatcher)
+        before = {n: m.snapshot()
+                  for n, m in self._remote_members.items()} or None
         result = run_plan(plan, query, items, backend or self.backend,
                           **kwargs)
         if replan_on_drift is not None:
@@ -754,6 +850,11 @@ class Session:
                 new_plan = self.plan(query, items)
                 result = run_plan(new_plan, query, items,
                                   backend or self.backend, **kwargs)
+        if before is not None:
+            from repro_torch.remote.client import remote_run_info
+            after = {n: m.snapshot()
+                     for n, m in self._remote_members.items()}
+            result.remote = remote_run_info(before, after)
         return result
 
     def iter_run(self, plan: PhysicalPlan, query: Query,

@@ -189,6 +189,11 @@ class RuntimeResult:
     #                                       used (None: whole corpus)
     coalesce: Optional[int] = None        # effective flush threshold
     #                                       actually used
+    # wire telemetry of the run's remote engine members (calls, retries,
+    # fallbacks, rtt percentiles, bytes on wire — see
+    # repro_torch.remote.client.remote_run_info). None when the session has
+    # no remote members or the run made no wire calls.
+    remote: Optional[Dict[str, Any]] = None
 
     @property
     def stage_times(self) -> List[Tuple[str, float, int]]:

@@ -311,21 +311,33 @@ def test_session_runs_on_the_card_unless_told_otherwise():
     """No silent CPU fallback: the default device is the card, and
     without one the Session raises."""
     assert repro_torch.SessionConfig().device == "cuda"
-    assert repro_torch.EngineSpec("e").device == "cuda"
+    # a spec's device defaults to None (a remote spec's device belongs to
+    # its worker), which a local engine resolves to the card
+    assert repro_torch.EngineSpec("e").device is None
+    pool = repro_torch.SessionConfig(engines=(
+        repro_torch.EngineSpec("e", models=("sm",)),))
 
-    def build():
-        return repro_torch.Session(models=("sm",))
-    if torch.cuda.is_available():
-        build().close()
-    else:
-        with pytest.raises(RuntimeError, match="CUDA"):
-            build()
+    for build in (lambda: repro_torch.Session(models=("sm",)),
+                  lambda: repro_torch.Session(pool)):
+        if torch.cuda.is_available():
+            build().close()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
 
 
 def test_unported_parts_raise():
+    """Remote members are ported now: a remote spec validates as the
+    reference's does. The sharded and mesh dispatchers are not."""
     from repro_torch.api import EngineSpec, SessionConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineSpec("remote", address="127.0.0.1:9")
+    from repro_torch.runtime.dispatch import resolve_dispatcher
+    remote = EngineSpec("remote", address="127.0.0.1:9")
+    assert remote.address == "127.0.0.1:9" and remote.device is None
+    with pytest.raises(ValueError, match="host:port"):
+        EngineSpec("remote", address="127.0.0.1")
+    for spec in ("sharded:2", "mesh:2"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            resolve_dispatcher(spec)
     # engine pools and tenants are ported: the config validates them
     pool = SessionConfig(engines=(EngineSpec("a"), EngineSpec("b")),
                          gold_engine="b")

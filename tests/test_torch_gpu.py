@@ -955,3 +955,56 @@ def test_graph_capture_beside_live_flushes(gpu, tmp_path):
         == [2 + 200, 2 + 200]
     assert torch.equal(beside.flat, alone.flat)
     assert torch.equal(beside.losses, alone.losses)
+
+
+def test_remote_member_on_the_card_matches_the_local_pool(gpu, tmp_path):
+    """An in-process worker on the card serves the planted "fast" tier
+    over 127.0.0.1; the pool it joins runs one hand-set plan (first
+    stages on "fast", gold on the local "accurate" engine) bit-equal to
+    the all-local pool on the card: decisions, map values and integer
+    StageStats, with wire calls and no fallback."""
+    import math
+    import numpy as np
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.core.logical import Query, SemFilter, SemMap
+    from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
+    from repro_torch.data import synthetic as syn
+    from repro_torch.remote import RemoteWorker, start_server
+    fast = dict(models=("sm",), sm_ratios=(0.8, 0.5), lg_ratios=())
+    worker = RemoteWorker("fast", cache_dir=str(tmp_path / "w"), **fast)
+    server, _, addr = start_server(worker)
+
+    def session(spec, tag):
+        return Session(SessionConfig(engines=(spec, EngineSpec(
+            "accurate", models=("lg",), sm_ratios=(), lg_ratios=(0.5,),
+            include_cheap=False, cache_dir=str(tmp_path / tag))),
+            gold_engine="accurate"))
+
+    local = session(EngineSpec("fast", cache_dir=str(tmp_path / "f"),
+                               **fast), "al")
+    remote = session(EngineSpec("fast", address=addr), "ar")
+    stages = [(0, 0, "fast/sm-kv80", 2.5, -3.0, False, False, "fast"),
+              (1, 0, "fast/sm-kv50", 1.5, -math.inf, True, False, "fast"),
+              (0, 1, "accurate/lg-kv00", 0.0, 0.0, False, True, "accurate"),
+              (1, 1, "accurate/lg-kv00", 0.0, 0.0, True, True, "accurate")]
+    plan = PhysicalPlan([PhysicalPlanStage(*s[:7], 0.1, engine=s[7])
+                         for s in stages], [], 0.0, 1.0, 1.0, True)
+    query = Query([SemFilter("f1", 1), SemMap("extract v2", 2)])
+    items = syn.make_dataset("remote", 90, seed=7).items
+    try:
+        assert worker.engine.device.type == "cuda"
+        ints = lambda r: [(s.op_name, s.engine, s.n_tuples, s.n_llm_calls,
+                           s.n_batches, s.kv_bytes) for s in r.stage_stats]
+        for dispatcher in ("inline", "threads:2"):
+            lr = local.run(plan, query, items, dispatcher=dispatcher)
+            rr = remote.run(plan, query, items, dispatcher=dispatcher)
+            assert np.array_equal(rr.accepted, lr.accepted)
+            for li in lr.map_values:
+                assert np.array_equal(rr.map_values[li], lr.map_values[li])
+            assert ints(rr) == ints(lr)
+            assert rr.remote["calls"] > 0 and rr.remote["fallbacks"] == 0
+    finally:
+        local.close()
+        remote.close()
+        server.shutdown()
+        server.server_close()

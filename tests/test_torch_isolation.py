@@ -26,7 +26,11 @@ def test_port_imports_no_jax_and_no_repro():
     assert "repro_torch.runtime.tree" in mods
     for m in ("repro_torch.scheduler", "repro_torch.scheduler.hub",
               "repro_torch.scheduler.scheduler",
-              "repro_torch.scheduler.tenants"):
+              "repro_torch.scheduler.tenants", "repro_torch.remote",
+              "repro_torch.remote.protocol", "repro_torch.remote.server",
+              "repro_torch.remote.client", "repro_torch.remote.testing",
+              "repro_torch.launch.remote_worker",
+              "repro_torch.launch.serve"):
         assert m in mods
     # the lazy exports resolve too (a module path in a string is an import)
     code = (
@@ -34,8 +38,8 @@ def test_port_imports_no_jax_and_no_repro():
         f"sys.path.insert(0, {os.path.abspath(SRC)!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import repro_torch, repro_torch.runtime as R, "
-        "repro_torch.scheduler as S\n"
-        "for mod in (repro_torch, R, S):\n"
+        "repro_torch.scheduler as S, repro_torch.remote as W\n"
+        "for mod in (repro_torch, R, S, W):\n"
         "    [getattr(mod, n) for n in mod.__all__ if n != '__version__']\n"
         "assert R.PoolBackend.__module__ == 'repro_torch.runtime.backend'\n"
         "assert R.EngineTaggedOperator.__module__ == "
