@@ -23,7 +23,8 @@ Phases, one JSON line each:
            tensor-core body's CPU twin, timed beside it and the FMA body;
            the FMA body's rows against its own twin; the Expected-Attention
            kernel (C) at the prefill chunks' shapes (every layer and item
-           in one launch), against its plain version and its twin
+           in one launch) and at the MLA latent rows' (dk 576, 288),
+           against its plain version and its twin
   planted  the planted sm/lg world (200 items) under a hand-written
            cascade plan through KVCacheBackend + run_plan; inline vs
            threads:2 bit-identical; the same plan on the CPU equal outside
@@ -139,6 +140,36 @@ Phases, one JSON line each:
            (200 items, 48 requests, concurrency 48: only queries on one
            task merge their flushes): flushes merged (saved_calls > 0)
            and every tenant's line printed
+  sharded_planted  the planted Session's plan, and a SemTopK query (k 10)
+           the Session plans, under sharded:2, sharded:3, mesh and mesh:2
+           (the partition scatter; every shard of the mesh on the one
+           card), each run from a cold device LRU: decisions, map values,
+           top-k picks and integer StageStats bit-equal to inline; wall_s
+           beside runtime_s
+  sharded_llama8b  the 8B Session's plan under sharded:2 and mesh:2 the
+           same way; the weights' data_ptrs unchanged and never copied,
+           each scatter's peak memory within 1 GB of inline's
+  session_deepseek  deepseek-v2-lite-16b at full width and depth (27
+           layers, MLA r 512 + rope 64, 64 routed experts top-6 + 2
+           shared, vocab 102400, bfloat16, random weights from a seed)
+           through a Session over 32 x 512-token items, rungs 0.8 / 0.5 /
+           gold: build by step, plan (profiling, optimizer), execute, peak
+           memory; C scores the latent rows (KV 1, G 16, dk 576), one
+           launch per prefill chunk; MLA decodes token by token in plain
+           torch (no kernel, as in the JAX package). Then the same world
+           cut to 12 layers in float32, planned and run on the card, and
+           its plan and a hand cascade run again by the port on the CPU
+           over the card's store: decisions equal outside the margin,
+           integer StageStats
+  zoo_legs  granite-8b, minitron-8b, gemma3-27b (6 layers: a global one
+           beside the 1024 windows), llava-next-34b and musicgen-medium
+           (frontend embeddings), dbrx-132b (MoE) at full width, 2
+           layers, random weights: a prefill of items of 1536 and 1200
+           tokens (D, tensor-core body, in every layer) and a fused
+           decode flush of 2 query tokens (A) held to the plain route
+           within 5 % of the largest magnitude, C over the chunk held to
+           its plain version; minicpm3-4b (2 layers): C at its latent
+           shape (KV 1, G 40, dk 288)
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
@@ -163,6 +194,7 @@ repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -179,6 +211,7 @@ PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense
 GLOBAL = 1 << 30
+DEV = "cuda"                  # the card (the CPU only to rehearse a phase)
 
 
 def emit(phase: str, **kw):
@@ -439,8 +472,9 @@ def _ea_cases(torch, gen, flush):
     launch, stats in the model's dtype: the 8B Session chunk (L 32, B 4, S
     512, the main path) and the hand plan's (S 1024), the same at B 16, one
     item alone, the planted chunks (dk 16: lanes of 16-byte vectors; dk
-    24: the row kernel), and one layer without the layer axis (the shape
-    of the kernel's earlier per-layer calls). Against the plain version
+    24: the row kernel), one layer without the layer axis (the shape
+    of the kernel's earlier per-layer calls), and the MLA latent chunks
+    (KV 1, dk 576 deepseek / 288 minicpm3: the row kernel). Against the plain version
     and C's CPU twin at 2e-5 x max(1, |score|); timed beside the plain
     version under a write and a read L2 flush."""
     from repro_torch.kernels import expected_attention as EA
@@ -454,7 +488,11 @@ def _ea_cases(torch, gen, flush):
              ("llama8b-item-S1024", 32, 1, 1024, 8, 4, 128, bf16, False),
              ("llama8b-one-layer", None, 1, 1024, 8, 4, 128, bf16, False),
              ("planted-sm-chunk", 2, 16, 160, 2, 1, 16, f32, False),
-             ("planted-lg-chunk", 2, 16, 160, 4, 1, 24, f32, False)]
+             ("planted-lg-chunk", 2, 16, 160, 4, 1, 24, f32, False),
+             # MLA latent rows [c_kv ; k_rope] as one KV head: the
+             # deepseek Session's chunk and minicpm3's at full depth
+             ("deepseek-latent-chunk", 27, 4, 512, 1, 16, 576, bf16, False),
+             ("minicpm3-latent-chunk", 62, 4, 512, 1, 40, 288, bf16, False)]
     out = []
     for label, L, B, S, KV, G, dk, dt, main in cases:
         lead = (L,) if L else ()
@@ -494,10 +532,11 @@ def _ea_cases(torch, gen, flush):
         row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
         nbytes = (k.numel() * k.element_size()
                   + 2 * mu.numel() * mu.element_size() + got.numel() * 4)
-        # the function as the TPU kernel computes it: two dot products per
-        # query head, 4 G flops per K element, at the float32 rate
-        row["bound_ms"], row["bound_by"] = bound(nbytes, k.numel() * G * 4,
-                                                 torch.float32)
+        # the least work: mean_g is linear, so the stats reduce over g
+        # once (2 flops per stats element) and a K element takes two FMAs
+        # (4 flops), at the float32 rate
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, k.numel() * 4 + 2 * mu.numel() * 2, torch.float32)
         row["library_ms"] = row["library_ms_read"] = None
         out.append(row)
         emit("kernel", **row)
@@ -1267,11 +1306,12 @@ def phase_session_planted(torch):
         rows.append(row)
     emit("baselines_planted", ok=True, items=len(ds.items), planners=rows,
          launches=base_counts)
+    sharded = phase_sharded_planted(torch, sess, plan, query, ds.items)
     sess.close()
     cpu_sess.close()
     del sess, cpu_sess, cpu_eng
     torch.cuda.empty_cache()
-    return counts, scan, base_counts, opt_calls[-1]
+    return counts, scan, base_counts, opt_calls[-1], sharded
 
 
 SESSION_8B_ITEMS, SESSION_8B_LEN = 32, 512
@@ -1344,9 +1384,11 @@ def phase_session_llama8b(torch, params):
         die("session_llama8b", f"int8 flush logits kernel vs plain: err "
                                f"{err} > {0.05 * scale} or non-finite")
     del caches
-    # the Session and its store stay for baselines_llama8b
+    # the Session and its store stay for sharded_llama8b and
+    # baselines_llama8b
     return counts, scan, opt_calls[-1], (sess, ds.items,
-                                         _frame(sess, ds.items).to_query())
+                                         _frame(sess, ds.items).to_query(),
+                                         result.raw.plan)
 
 
 def phase_baselines_llama8b(torch, kept):
@@ -1356,7 +1398,7 @@ def phase_baselines_llama8b(torch, kept):
     executed through the Session; plan and execute seconds, items/s,
     recall and precision against gold, stages, and A's launches. Then
     the store is removed."""
-    sess, items, query = kept
+    sess, items, query, _ = kept
     runs, counts = _run_planners(torch, sess, query, items,
                                  with_stretto=True)
     emit("baselines_llama8b", ok=True, items=len(items),
@@ -3223,6 +3265,605 @@ def phase_serve_planted(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the partition scatter (sharded / mesh dispatchers) on the card
+# ---------------------------------------------------------------------------
+
+SCATTER = ("sharded:2", "sharded:3", "mesh", "mesh:2")
+
+
+def _quantile_plan(sess, query, items, filt_stages, map_stage):
+    """A hand cascade over a Session's one engine: the filter through
+    `filt_stages` ((op, low quantile, high quantile) each) then gold, the
+    map through `map_stage` then gold. Random or planted weights put the
+    scores anywhere, so each early stage's thresholds are quantiles of
+    its scores over the corpus: a share of the tuples decides at each
+    stage, and the rest go on."""
+    import numpy as np
+    from repro_torch.runtime.executor import run_operator
+    f_op, m_op = query.semantic_ops
+    q = lambda s, p: float(np.quantile(s, p))
+    rows = []
+    for st, (name, lo, hi) in enumerate(filt_stages):
+        sc = np.asarray(run_operator(sess.backend, f_op, name, items).scores)
+        rows.append((0, st, name, q(sc, hi), q(sc, lo), False, False, ""))
+    rows.append((0, len(filt_stages), "lg-kv00", 0.0, 0.0, False, True, ""))
+    sc = np.asarray(run_operator(sess.backend, m_op, map_stage,
+                                 items).scores)
+    rows.append((1, 0, map_stage, q(sc, 0.5), -math.inf, True, False, ""))
+    rows.append((1, 1, "lg-kv00", 0.0, 0.0, True, True, ""))
+    return _plan_of(rows)
+
+
+def _add_counts(total, counts):
+    """Launch counts summed over windows (D's per-body counts too)."""
+    if total is None:
+        return counts
+    return {k: (total[k] + v if not isinstance(v, dict) else
+                {b: total[k][b] + n for b, n in v.items()})
+            for k, v in counts.items()}
+
+
+def _scatter_runs(torch, phase, sess, plan, query, items, specs):
+    """`plan` through the Session under inline, then under each spec of
+    `specs`, every run from a cold device LRU (a hit loads no bytes):
+    decisions, map values and integer StageStats (n_batches aside: shards
+    flush on their own) of each scatter bit-equal to inline's. The launch
+    counts are set to 0 just before each scatter run and read just after
+    it, so the inline run stays outside them. Returns the rows, the
+    inline result and the scatter runs' launches summed."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.dispatch import backend_engines
+    runs, counts = {}, None
+    for spec in ("inline",) + tuple(specs):
+        for eng in backend_engines(sess.backend):
+            eng.evict()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = sess.run(plan, query, items, dispatcher=spec)
+        torch.cuda.synchronize()
+        runs[spec] = (r, time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 1e9)
+        if spec != "inline":
+            counts = _add_counts(counts, ops.launch_counts())
+    base = runs["inline"][0]
+    rows = []
+    for spec, (r, secs, peak) in runs.items():
+        a, b = _decisions(base), _decisions(r)
+        same = bool(np.array_equal(a[0], b[0]) and set(a[1]) == set(b[1])
+                    and all(np.array_equal(a[1][li], b[1][li])
+                            for li in a[1]))
+        ints = sorted(_ints(base)) == sorted(_ints(r))
+        rows.append(dict(dispatcher=spec, ran=r.dispatcher,
+                         n_workers=r.n_workers, seconds=secs,
+                         wall_s=r.wall_s, runtime_s=r.runtime_s,
+                         n_partitions=r.n_partitions, peak_mem_gb=peak,
+                         accepted=int(r.accepted.sum()), equal=same,
+                         ints_equal=ints))
+        if not (same and ints):
+            die(phase, f"{spec} differs from inline: decisions equal "
+                       f"{same}, integer StageStats equal {ints}")
+    return rows, base, counts
+
+
+def _check_scatter_launches(phase, counts, names):
+    """The scatter runs themselves (their windows alone) launched each
+    kernel of `names`."""
+    for name in names:
+        if counts[name] <= 0:
+            die(phase, f"the scatter runs launched no {name}: {counts}")
+
+
+def phase_sharded_planted(torch, sess, plan, query, items):
+    """The planted Session's plan, a hand cascade (sm-kv80, sm-kv50 and
+    lg-kv50 before gold; thresholds at quantiles) and a SemTopK query (k
+    10) planned by the Session, each under sharded:2, sharded:3, mesh and
+    mesh:2 bit-equal to inline; wall_s (the scatter's wall clock) beside
+    runtime_s (operator time summed over shards). The launches are the
+    scatter runs' alone, and A must be among them."""
+    hand = _quantile_plan(sess, query, items, [("sm-kv80", 0.2, 0.8),
+                                               ("sm-kv50", 0.25, 0.75),
+                                               ("lg-kv50", 0.3, 0.7)],
+                          "sm-kv50")
+    top = (sess.frame(items).sem_topk(QUERY[0][0], task_id=QUERY[0][1],
+                                      k=10)
+           .with_guarantees(recall=TARGET, precision=TARGET))
+    tq = top.to_query()
+    tplan = sess.plan(tq, items)
+    rows, _, counts = _scatter_runs(torch, "sharded_planted", sess, plan,
+                                    query, items, SCATTER)
+    hrows, _, hcounts = _scatter_runs(torch, "sharded_planted", sess, hand,
+                                      query, items, SCATTER)
+    trows, tbase, tcounts = _scatter_runs(torch, "sharded_planted", sess,
+                                          tplan, tq, items, SCATTER)
+    counts = _add_counts(_add_counts(counts, hcounts), tcounts)
+    if int(tbase.accepted.sum()) != 10:
+        die("sharded_planted", f"SemTopK kept {int(tbase.accepted.sum())} "
+                               f"of k 10")
+    _check_scatter_launches("sharded_planted", hcounts,
+                            ("decode_query_attention",))
+    emit("sharded_planted", ok=True, items=len(items),
+         stages=[s.op_name for s in plan.stages], runs=rows,
+         hand_stages=[s.op_name for s in hand.stages], hand_runs=hrows,
+         topk_stages=[s.op_name for s in tplan.stages], topk_runs=trows,
+         launches=counts, hand_launches=hcounts)
+    return counts
+
+
+def phase_sharded_llama8b(torch, kept, params):
+    """The 8B Session's plan, and a hand cascade (int8 0.5, 0.8 before
+    gold; thresholds at quantiles), under sharded:2 and mesh:2 against
+    inline, each from a cold device LRU so kv_bytes compare exactly:
+    decisions and integer StageStats bit-equal; the weights' data_ptrs
+    unchanged and no copy made (the shards' device is the weights' own);
+    each scatter's peak memory within 1 GB of the inline run's. The
+    launches are the scatter runs' alone; the hand cascade's must hold A
+    and A-int8."""
+    sess, items, query, session_plan = kept
+    plans = {"session": session_plan,
+             "hand": _quantile_plan(sess, query, items,
+                                    [("lg-kv50i8", 1 / 6, 5 / 6),
+                                     ("lg-kv80", 0.25, 0.75)], "lg-kv50")}
+
+    def ptrs(tree):
+        if isinstance(tree, dict):
+            return {k: ptrs(v) for k, v in tree.items()}
+        return tree.data_ptr()
+    before = ptrs(params)
+    rows, by_plan, counts = {}, {}, None
+    for k, plan in plans.items():
+        rows[k], _, by_plan[k] = _scatter_runs(
+            torch, "sharded_llama8b", sess, plan, query, items,
+            ("sharded:2", "mesh:2"))
+        counts = _add_counts(counts, by_plan[k])
+    _check_scatter_launches("sharded_llama8b", by_plan["hand"],
+                            ("decode_query_attention",
+                             "decode_query_attention_int8"))
+    eng = sess.engine
+    shared = ptrs(eng.models["lg"].params) == before == ptrs(params) \
+        and not eng._placed_params
+    extra = max(r["peak_mem_gb"] - runs[0]["peak_mem_gb"]
+                for runs in rows.values() for r in runs)
+    emit("sharded_llama8b", ok=shared and extra <= 1.0, items=len(items),
+         stages={k: [s.op_name for s in p.stages] for k, p in plans.items()},
+         runs=rows,
+         weights_shared=shared, weights_gb=_weights_bytes(params) / 1e9,
+         peak_over_inline_gb=extra, launches=counts,
+         launches_by_plan=by_plan)
+    if not shared:
+        die("sharded_llama8b", "a scatter copied or moved the weights")
+    if extra > 1.0:
+        die("sharded_llama8b", f"a scatter's peak memory is {extra:.3f} GB "
+                               f"over inline's")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b at full width and depth: MLA + MoE through a Session
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_ITEMS, DEEPSEEK_LEN, DEEPSEEK_CPU_LAYERS = 32, 512, 12
+
+
+def _deepseek_session(cfg, params, root, device=None):
+    """Session(cfg, engine=eng) with the model registered as "lg": rungs
+    0.8 / 0.5 / gold (MLA keeps latents: no int8 rung), 4 items per
+    prefill chunk."""
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.serving.engine import ServingEngine
+    device = device or DEV
+    eng = ServingEngine(CacheStore(root), device=device)
+    eng.register_model("lg", cfg, params)
+    spec = EngineSpec("deepseek", models=("lg",), sm_ratios=(),
+                      lg_ratios=(0.8, 0.5), include_cheap=False,
+                      prefill_batch=4, device=device)
+    return eng, Session(SessionConfig(
+        engines=(spec,), planner=PlannerConfig(steps=200, restarts=3)),
+        engine=eng)
+
+
+def _check_deepseek(phase, counts, result, metrics, eng, n_items):
+    _check_chunks(phase, counts, eng)
+    if counts["expected_attention_scores"] <= 0:
+        die(phase, f"no launch of C at the latent shape: {counts}")
+    if counts["prefill_attention"] or counts["decode_query_attention"]:
+        die(phase, f"an MLA path launched D or A: {counts}")
+    if result.accepted.shape != (n_items,):
+        die(phase, "result has the wrong shape")
+    if metrics["recall"] < TARGET or metrics["precision"] < TARGET:
+        die(phase, f"guarantees missed against gold: {metrics}")
+
+
+def phase_session_deepseek(torch):
+    """deepseek-v2-lite-16b at full width and depth (27 layers, d_model
+    2048, MLA r 512 + rope 64, 64 routed experts top-6 + 2 shared, vocab
+    102400, bfloat16, random weights from seed 0) through a Session over
+    32 x 512-token items: build by step, plan (profiling, optimizer),
+    execute, peak memory, and C's launches at the latent shape (KV 1, G
+    16, dk 576). Then the same world cut to DEEPSEEK_CPU_LAYERS layers, in
+    float32, planned and run on the card, and its plan and a hand
+    cascade (0.8, 0.5 before gold; thresholds at quantiles) run again by
+    the port on the CPU over the card's store: decisions equal outside
+    MARGIN of every threshold, integer StageStats equal where every
+    decision is. (In bfloat16 a
+    router logit within rounding of the 6th largest picks another expert
+    on the CPU than on the card, so that comparison would read rounding,
+    not the port.)"""
+    import dataclasses
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.cache.store import CacheStore
+    from repro_torch.core.optimizer import PlannerConfig
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    m = cfg.mla
+    # earlier phases' engines may sit in reference cycles: free them, so
+    # the peak below is this phase's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = _weights_bytes(params) / 1e9
+    ds = syn.make_dataset("deepseek-session", DEEPSEEK_ITEMS,
+                          seq_len=DEEPSEEK_LEN, seed=8)
+    root = os.path.join(WORK, "session-deepseek")
+    eng, sess = _deepseek_session(cfg, params, root)
+    torch.cuda.reset_peak_memory_stats()
+    report, result, metrics, counts, times, _ = _drive_session(
+        torch, sess, [ds.items], _frame(sess, ds.items))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("session_explain", text=str(report))
+    _check_deepseek("session_deepseek", counts, result, metrics, eng,
+                    len(ds.items))
+    full = dict(init_s=init_s, weights_gb=weights_gb, held_before_gb=held_gb,
+                **times,
+                planning_time_s=report.planning_time_s,
+                stages=[s.op_name for s in report.stages],
+                feasible=report.feasible, metrics=metrics,
+                prefill_chunks=eng.prefill_chunks,
+                build_steps_s=dict(eng.build_seconds), peak_mem_gb=peak_gb,
+                attn_dispatches=eng.attn_dispatches,
+                c_shape=dict(L=cfg.n_layers, B=4, S=DEEPSEEK_LEN, KV=1,
+                             G=cfg.n_heads, dk=m.kv_lora_rank
+                             + m.qk_rope_dim))
+    sess.close()
+    shutil.rmtree(root, ignore_errors=True)
+    del sess, eng, params, result
+    torch.cuda.empty_cache()
+
+    # the same world cut in depth, float32, on the card and on the CPU
+    cut = dataclasses.replace(cfg, n_layers=DEEPSEEK_CPU_LAYERS,
+                              dtype="float32")
+    params = init_params(cut, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    root = os.path.join(WORK, "session-deepseek-cut")
+    eng, sess = _deepseek_session(cut, params, root)
+    frame = _frame(sess, ds.items)
+    _, cres, cmetrics, ccounts, ctimes, _ = _drive_session(
+        torch, sess, [ds.items], frame)
+    _check_deepseek("session_deepseek", ccounts, cres, cmetrics, eng,
+                    len(ds.items))
+    query = frame.to_query()
+    plans = {"session": cres.raw.plan,
+             "hand": _quantile_plan(sess, query, ds.items,
+                                    [("lg-kv80", 0.2, 0.8),
+                                     ("lg-kv50", 0.25, 0.75)], "lg-kv50")}
+    cpu_eng = ServingEngine(CacheStore(root), device="cpu")
+    cpu_eng.register_model("lg", cut, {k: (v.cpu() if not isinstance(v, dict)
+                                           else _tree_cpu(v))
+                                       for k, v in params.items()})
+    cpu_sess = Session(SessionConfig(engines=(EngineSpec(
+        "deepseek", models=("lg",), sm_ratios=(), lg_ratios=(0.8, 0.5),
+        include_cheap=False, prefill_batch=4, device="cpu"),),
+        planner=PlannerConfig(steps=200, restarts=3)), engine=cpu_eng)
+    compared = {}
+    for name, plan in plans.items():
+        eng.evict()
+        cpu_eng.evict()
+        card = sess.run(plan, query, ds.items)
+        t0 = time.perf_counter()
+        cpu = cpu_sess.run(plan, query, ds.items)
+        cpu_s = time.perf_counter() - t0
+        cpu_same, all_same, n_near = _linear_card_vs_cpu(
+            "session_deepseek", sess, plan, query, ds.items, card, cpu)
+        compared[name] = dict(
+            stages=[s.op_name for s in plan.stages], cpu_run_s=cpu_s,
+            cpu_equal_outside_margin=cpu_same,
+            cpu_equal_everywhere=all_same, n_near_margin=n_near,
+            cpu_ints_equal=_ints(card) == _ints(cpu),
+            accepted=int(card.accepted.sum()))
+    emit("session_deepseek", ok=True, items=len(ds.items),
+         item_tokens=DEEPSEEK_LEN, **full, launches=counts,
+         cut=dict(n_layers=DEEPSEEK_CPU_LAYERS, dtype="float32",
+                  plan_s=ctimes["plan_s"], build_s=ctimes["build_s"],
+                  margin=MARGIN, plans=compared, launches=ccounts))
+    sess.close()
+    cpu_sess.close()
+    shutil.rmtree(root, ignore_errors=True)
+    del sess, cpu_sess, eng, cpu_eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _tree_cpu(tree):
+    return {k: (_tree_cpu(v) if isinstance(v, dict) else v.cpu())
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the GQA zoo configs at full width, cut in depth: D and A at new shapes
+# ---------------------------------------------------------------------------
+
+# (config, layers): 6 for gemma3 so that a global layer (every 6th) runs
+ZOO_GQA = (("granite-8b", 2), ("minitron-8b", 2), ("gemma3-27b", 6),
+           ("llava-next-34b", 2), ("musicgen-medium", 2), ("dbrx-132b", 2))
+ZOO_LENGTHS = (1536, 1200)      # longer than gemma3's 1024 window
+ZOO_TOL = 0.05                  # x the plain version's max |value| (bf16)
+# a launch's output element against the plain version's: bf16 steps at
+# |plain|, plus a share of the attention over |v|
+ZOO_ELEM_TOL = (2, 2.0 ** -10)
+ZOO_FAULT_KEYS = 64             # the planted fault: the window one key tile
+
+
+def _zoo_inputs(torch, cfg, gen, n, S):
+    """tokens (n, S), or the frontend's embeddings (n, S, d) for llava /
+    musicgen."""
+    if cfg.frontend == "none":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (n, S),
+                                        generator=gen, device=DEV)}
+    return {"embeds": torch.randn((n, S, cfg.d_model), generator=gen,
+                                  device=DEV).to(torch.bfloat16)}
+
+
+class _KernelCalls:
+    """Records each call of `ops.prefill_attention` and
+    `ops.decode_query_attention` made while it is active (its inputs and
+    output), so each launch on the model's path can be held against the
+    plain version on the same inputs."""
+
+    def __init__(self, ops):
+        self.ops, self.calls = ops, []
+        self.real = (ops.prefill_attention, ops.decode_query_attention)
+
+        def rec(name, fn):
+            def run(*a, **kw):
+                out = fn(*a, **kw)
+                self.calls.append((name, a, kw, out))
+                return out
+            return run
+        ops.prefill_attention = rec("prefill_attention", self.real[0])
+        ops.decode_query_attention = rec("decode_query_attention",
+                                         self.real[1])
+
+    def close(self):
+        self.ops.prefill_attention, self.ops.decode_query_attention = \
+            self.real
+
+    def hold(self, phase, label):
+        """Every recorded launch against the plain version on its inputs,
+        element by element (ZOO_ELEM_TOL): within two bf16 steps of the
+        plain value plus 2^-10 of the same attention over |v|, which
+        bounds what float32 accumulation can move an output whose terms
+        cancel. On a windowed launch the window is also shifted by one
+        key block (ZOO_FAULT_KEYS) in the plain version: that planted
+        fault must fail the same check. Returns the worst (error over
+        limit) per kernel, and the least (fault's error over limit) where
+        a fault was planted."""
+        from repro_torch.kernels import ref
+        worst = {}
+        for name, a, kw, out in self.calls:
+            window = min(int(kw.get("window", GLOBAL)), GLOBAL)
+            kw = {k: v for k, v in kw.items()
+                  if k not in ("backend", "k_scale", "v_scale", "window")}
+            plain = (ref.prefill_attention_ref if name == "prefill_attention"
+                     else ref.decode_query_attention_ref)
+            q, k, v, *rest = a
+            want = plain(q, k, v, *rest, window=window, **kw).float()
+            spread = plain(q, k, v.abs(), *rest, window=window,
+                           **kw).float()
+            ratio = _elem_ratio(out, want, spread)
+            worst[name] = max(worst.get(name, 0.0), ratio)
+            if not ratio <= 1.0:
+                die(phase, f"{label}: {name} vs its plain version on the "
+                           f"same inputs: error {ratio} x the limit "
+                           f"{ZOO_ELEM_TOL}")
+            reach = k.shape[1] if name == "prefill_attention" else \
+                int(rest[0].max())
+            if window < reach:
+                fault = plain(q, k, v, *rest, window=window - ZOO_FAULT_KEYS,
+                              **kw).float()
+                f = _elem_ratio(out, fault, spread)
+                key = name + "_fault"
+                worst[key] = min(worst.get(key, math.inf), f)
+                if not f > 1.0:
+                    die(phase, f"{label}: {name}'s check passes a window "
+                               f"off by {ZOO_FAULT_KEYS} keys ({f} x the "
+                               f"limit)")
+        self.calls = []
+        return worst
+
+
+def _bf16_step(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _elem_ratio(got, want, spread):
+    """max over elements of |got - want| / (steps x bf16 step at |want| +
+    rel x spread): at most 1 passes ZOO_ELEM_TOL. NaN or inf in `got`
+    gives inf."""
+    steps, rel = ZOO_ELEM_TOL
+    err = (got.float() - want).abs()
+    lim = steps * _bf16_step(want) + rel * spread
+    r = err / lim
+    if not bool(got.float().isfinite().all()):
+        return math.inf
+    return float(r.max())
+
+
+def _close(phase, label, got, want):
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not (bool(got.float().isfinite().all()) and err <= ZOO_TOL * scale):
+        die(phase, f"{label}: kernel route vs plain: err {err} > "
+                   f"{ZOO_TOL} x {scale} or non-finite")
+    return err, scale
+
+
+def phase_zoo_legs(torch):
+    """Each GQA zoo config at full width, cut in depth (ZOO_GQA), random
+    weights from a seed: one prefill of two items (ZOO_LENGTHS) on the
+    kernel route (D in every layer) held against the plain route (the
+    blocked flash_attention), last logits and k / v caches; one fused
+    decode flush of 2 query tokens (A in every layer) against the plain
+    decode; every launch of D and A also against its plain version on
+    the same inputs, element by element (`_KernelCalls.hold`: two bf16
+    steps plus 2^-10 of the attention over |v|; on gemma3's windowed
+    layers a window one key tile short must fail it), which alone holds
+    dbrx (MoE: an expert
+    picked from bf16 router logits may differ between the two routes, so
+    its end-to-end errors are printed, not held); C over the chunk
+    against its plain version. Then minicpm3-4b
+    (MLA r 256 + rope 32, cut to 2 layers): one build chunk's C at its
+    latent shape (KV 1, G 40, dk 288). Each model is freed before the
+    next. Launches on the kernel routes count."""
+    import dataclasses
+    from repro_torch.cache.compression import (calibrate_query_stats,
+                                               score_chunk)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_multi, init_params, prefill
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    S = max(ZOO_LENGTHS)
+    lengths = torch.tensor(ZOO_LENGTHS, dtype=torch.int32, device=DEV)
+    total, rows = None, []
+
+    def c_check(label, cfg, params, cache, inputs):
+        stats = calibrate_query_stats(params, cfg, kernels="cuda", **inputs)
+        got = score_chunk(cfg, cache, stats, ZOO_LENGTHS, kernels="cuda")
+        want = score_chunk(cfg, cache, stats, ZOO_LENGTHS, kernels="ref")
+        live = want.isfinite()
+        mag = want[live].abs().clamp(min=1.0)
+        rel = float(((got[live] - want[live]).abs() / mag).max())
+        if not (rel <= 2e-5 and bool((got.isfinite() == live).all())):
+            die("zoo_legs", f"{label}: C vs plain relative error {rel}")
+        return rel
+
+    for name, depth in ZOO_GQA:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), n_layers=depth)
+        params = init_params(cfg, gen, device=DEV)
+        inputs = _zoo_inputs(torch, cfg, gen, len(ZOO_LENGTHS), S)
+        # an MoE router picks its experts from bf16 logits: a rounding
+        # difference upstream (the kernel's attention against the blocked
+        # one) may pick another expert for a token, so dbrx's logits are
+        # reported, and its kernels held call by call
+        gate = not cfg.is_moe
+        rec = _KernelCalls(ops)
+        try:
+            ops.reset_launch_counts()
+            last, cache = prefill(params, cfg, max_len=S + 128,
+                                  lengths=lengths, kernels="cuda", **inputs)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            errs = rec.hold("zoo_legs", f"{name} prefill")
+            last_p, cache_p = prefill(params, cfg, max_len=S + 128,
+                                      lengths=lengths, kernels="ref",
+                                      **inputs)
+            q = _zoo_inputs(torch, cfg, gen, len(ZOO_LENGTHS), 2)
+            ops.reset_launch_counts()
+            dec = decode_multi(params, cfg, {k: v.clone()
+                                             for k, v in cache.items()},
+                               kernels="cuda", rows=8, **q)[0]
+            torch.cuda.synchronize()
+            dcounts = ops.launch_counts()
+            errs.update(rec.hold("zoo_legs", f"{name} decode"))
+        finally:
+            rec.close()
+        dec_p = decode_multi(params, cfg, {k: v.clone()
+                                           for k, v in cache_p.items()},
+                             kernels="ref", rows=8, **q)[0]
+        for label, got, want in (("prefill_logits", last, last_p),
+                                 ("cache_k", cache["k"], cache_p["k"]),
+                                 ("cache_v", cache["v"], cache_p["v"]),
+                                 ("decode_logits", dec, dec_p)):
+            if gate:
+                errs[label] = _close("zoo_legs", f"{name} {label}", got,
+                                     want)[0]
+            else:
+                errs[label] = float((got.float() - want.float()).abs().max())
+                errs[label + "_scale"] = float(want.float().abs().max())
+        ops.reset_launch_counts()
+        errs["c_rel"] = c_check(name, cfg, params, cache,
+                                {k: v[:, :S] for k, v in inputs.items()})
+        ccounts = ops.launch_counts()
+        for c in (counts, dcounts, ccounts):
+            total = _add_counts(total, c)
+        if cfg.window and not {"prefill_attention_fault",
+                               "decode_query_attention_fault"} <= set(errs):
+            die("zoo_legs", f"{name}: no windowed launch to plant the "
+                            f"fault in")
+        if counts["prefill_attention_by_body"]["tc"] != depth \
+                or dcounts["decode_query_attention"] != depth:
+            die("zoo_legs", f"{name}: D {counts['prefill_attention']} / A "
+                            f"{dcounts['decode_query_attention']} launches "
+                            f"for {depth} layers")
+        KV = cfg.n_kv_heads
+        rows.append(dict(config=name, layers=depth, d_model=cfg.d_model,
+                         KV=KV, G=cfg.n_heads // KV, dk=cfg.d_head,
+                         window=cfg.window or None, S=S, **errs,
+                         seconds=time.perf_counter() - t0))
+        emit("zoo_leg", **rows[-1])
+        del params, cache, cache_p, last, last_p, dec, dec_p, inputs
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minicpm3-4b"), n_layers=2)
+    params = init_params(cfg, gen, device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
+                         device=DEV)
+    _, cache = prefill(params, cfg, tokens=toks)
+    ops.reset_launch_counts()
+    stats = calibrate_query_stats(params, cfg, tokens=toks, kernels="cuda")
+    got = score_chunk(cfg, cache, stats, [512] * 4, kernels="cuda")
+    torch.cuda.synchronize()
+    ccounts = ops.launch_counts()
+    want = score_chunk(cfg, cache, stats, [512] * 4, kernels="ref")
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    total = _add_counts(total, ccounts)
+    m = cfg.mla
+    rows.append(dict(config="minicpm3-4b", layers=2, KV=1, G=cfg.n_heads,
+                     dk=m.kv_lora_rank + m.qk_rope_dim, S=512, c_rel=rel,
+                     c_launches=ccounts["expected_attention_scores"],
+                     seconds=time.perf_counter() - t0))
+    emit("zoo_leg", **rows[-1])
+    if not (rel <= 2e-5 and ccounts["expected_attention_scores"] == 1):
+        die("zoo_legs", f"minicpm3-4b: C at the latent shape: relative "
+                        f"error {rel}, {ccounts['expected_attention_scores']}"
+                        f" launches")
+    del params, cache, stats, got, want
+    torch.cuda.empty_cache()
+    emit("zoo_legs", ok=True, legs=rows, tol=f"{ZOO_TOL} x max |plain|",
+         launch_tol=f"{ZOO_ELEM_TOL[0]} bf16 steps + {ZOO_ELEM_TOL[1]} x "
+                    f"attention over |v|, per element",
+         launches=total)
+    return total
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -3254,12 +3895,17 @@ PREFILL_BODIES = {
 }
 
 
+# bfloat16 paths besides the 8B ones: D's tensor-core body only
+BF16_PATHS = ("session_deepseek", "zoo_legs")
+
+
 def _check_prefill_bodies(paths):
-    """D's body on each path: the tensor-core body on every 8B path that
-    builds profiles and on no planted one, the FMA body on no 8B path."""
+    """D's body on each path: the tensor-core body on every bf16 path
+    (8B, the zoo) that builds profiles and on no planted one, the FMA body
+    on no bf16 path."""
     for path, counts in paths.items():
         by_body = counts["prefill_attention_by_body"]
-        if "llama8b" in path:
+        if path in BF16_PATHS or "llama8b" in path:
             if by_body["fma"] or (counts["prefill_attention"]
                                   and not by_body["tc"]):
                 die("kernels", f"{path} launched D's FMA body or no "
@@ -3267,7 +3913,8 @@ def _check_prefill_bodies(paths):
         elif by_body["tc"]:
             die("kernels", f"planted path {path} launched D's tensor-core "
                            f"body: {by_body}")
-    for path in ("llama8b", "session_llama8b", "session_join_llama8b"):
+    for path in ("llama8b", "session_llama8b", "session_join_llama8b",
+                 "zoo_legs"):
         if paths[path]["prefill_attention_by_body"]["tc"] <= 0:
             die("kernels", f"{path} launched no tensor-core body of D")
 
@@ -3312,13 +3959,14 @@ def main() -> int:
         paths["llama8b"], params = phase_llama8b(torch)
         problems = {}
         (paths["session_planted"], paths["session_planted_scan"],
-         paths["baselines_planted"], problems["session_planted"]) = \
-            phase_session_planted(torch)
+         paths["baselines_planted"], problems["session_planted"],
+         paths["sharded_planted"]) = phase_session_planted(torch)
         paths["session_join_planted"], paths["session_join_planted_hand"] \
             = phase_session_join_planted(torch)
         (paths["session_llama8b"], paths["session_llama8b_scan"],
          problems["session_llama8b"], kept) = \
             phase_session_llama8b(torch, params)
+        paths["sharded_llama8b"] = phase_sharded_llama8b(torch, kept, params)
         paths["baselines_llama8b"] = phase_baselines_llama8b(torch, kept)
         del kept
         paths["session_join_llama8b"] = phase_session_join_llama8b(torch,
@@ -3337,6 +3985,8 @@ def main() -> int:
         del planted, llama, params
         torch.cuda.empty_cache()
         paths["serve_planted"] = phase_serve_planted(torch)
+        paths["session_deepseek"] = phase_session_deepseek(torch)
+        paths["zoo_legs"] = phase_zoo_legs(torch)
         _check_prefill_bodies(paths)
         rows.update(phase_planner(torch, problems))
     finally:

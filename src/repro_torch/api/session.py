@@ -281,8 +281,13 @@ class SessionConfig:
                          DEFAULT_COALESCE; also what the planner's
                          batch-aware cost model amortizes over)
       dispatcher       — runtime dispatcher spec ("inline" |
-                         "threads[:N]"), a Dispatcher instance, or None to
-                         read STRETTO_DISPATCHER
+                         "threads[:N]" | "sharded[:N]" | "mesh[:N]"), a
+                         Dispatcher instance, or None to read
+                         STRETTO_DISPATCHER. "mesh:N" scatters the
+                         partition loop over N corpus shards, each with
+                         its engines placed on a device of the dispatch
+                         mesh (every shard on one card when there is
+                         one); decisions stay bit-identical to "inline"
 
     Measured feedback (the measure -> plan loop)
       feedback         — seeds the session's MeasuredBatchStore: a store
@@ -763,8 +768,9 @@ class Session:
                 if n <= 0:
                     # same contract as resolve_dispatcher: a bad count
                     # must fail loudly, not silently clamp to 1 worker
-                    raise ValueError(f"dispatcher spec {eff!r}: worker "
-                                     f"count must be positive, got {n}")
+                    raise ValueError(f"dispatcher spec {eff!r}: "
+                                     f"worker/shard count must be "
+                                     f"positive, got {n}")
                 kwargs["n_workers"] = n
             self._affinity_disp = ThreadPoolDispatcher(**kwargs)
         return self._affinity_disp

@@ -10,7 +10,9 @@ The port of `repro.cache.compression`. Offline pipeline:
   3. keep the top (1 - ratio) positions per item per layer, ties broken
      toward the lower position as `jax.lax.top_k` does.
 
-The port covers GQA k/v caches (the MLA latent scoring waits with MLA).
+GQA caches compress k/v; MLA caches compress latent rows ([c_kv ; k_rope]
+scored as one KV head of width r + rope against the absorbed query's
+statistics, as the JAX package does).
 """
 from __future__ import annotations
 
@@ -20,38 +22,77 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as KOPS
-from repro_torch.models.transformer import _trunk
+from repro_torch.models.transformer import _trunk, cache_keys
 
 
 class QueryStats(NamedTuple):
     mu: torch.Tensor     # (L, KV, G, dk) in the model dtype
-    sig2: torch.Tensor   # (L, KV, G, dk) in the model dtype
+    sig2: torch.Tensor   # (L, KV, G, dk); MLA: (L, 1, H, r + rope)
 
 
-def calibrate_query_stats(params, cfg: ModelConfig, tokens,
-                          tail_frac: float = 0.5,
-                          kernels=None) -> QueryStats:
+def _gaussian(q: torch.Tensor) -> QueryStats:
+    """Mean and population variance over axis 1, reduced in float32 and
+    returned in q's dtype (what `jnp.mean` / `jnp.var` do for bfloat16)."""
+    qf = q.float()
+    mu = qf.mean(dim=1)
+    sig2 = (qf - mu[:, None]).square().sum(dim=1) / qf.shape[1]
+    return QueryStats(mu.to(q.dtype), sig2.to(q.dtype))
+
+
+def calibrate_query_stats(params, cfg: ModelConfig, tokens=None,
+                          tail_frac: float = 0.5, kernels=None,
+                          embeds=None) -> QueryStats:
     """Fit per-layer, per-head query Gaussians from calibration data, on
     the trailing `tail_frac` positions (future operator queries arrive
     after the document). As in the JAX package, the queries are projected
     in the model dtype, mean and (population) variance are reduced in
     float32 (`jnp.mean` / `jnp.var` upcast bfloat16), and the stats come
     back in the model dtype. `kernels` selects the forward's attention
-    route (the prefill kernel on the card)."""
+    route (the prefill kernel on the card). A frontend's model (llava,
+    musicgen) calibrates on `embeds` (B, S, d) in place of `tokens`.
+
+    MLA: the statistics are those of the absorbed query [q_nope W_uk ;
+    q_rope] per head, (L, 1, H, r + rope): one KV head whose G = H
+    "query heads" score the latent rows."""
     _, caches = _trunk(params, cfg, tokens, collect_hidden=True,
-                       kernels=kernels)
+                       kernels=kernels, embeds=embeds)
     h = caches["h"]                                # (L, B, S, d)
     Ln, B, S, d = h.shape
     t0 = int(S * (1.0 - tail_frac))
     h = h[:, :, t0:, :]
-    wq = params["layers"]["attn"]["wq"]            # (L, d, H*dh)
-    q = torch.einsum("lbsd,lde->lbse", h, wq)
-    KV, G, dk = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
-    q = q.reshape(Ln, -1, KV, G, dk)
-    qf = q.float()
-    mu = qf.mean(dim=1)
-    sig2 = (qf - mu[:, None]).square().sum(dim=1) / qf.shape[1]
-    return QueryStats(mu.to(q.dtype), sig2.to(q.dtype))
+    ap = params["layers"]["attn"]
+    if cfg.attn_kind == "gqa":
+        q = torch.einsum("lbsd,lde->lbse", h, ap["wq"])   # (L, d, H*dh)
+        KV, G, dk = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+            cfg.d_head
+        return _gaussian(q.reshape(Ln, -1, KV, G, dk))
+    m = cfg.mla
+    if m.q_lora_rank:
+        q = torch.einsum("lbse,lef->lbsf",
+                         torch.einsum("lbsd,lde->lbse", h, ap["wq_a"]),
+                         ap["wq_b"])
+    else:
+        q = torch.einsum("lbsd,lde->lbse", h, ap["wq"])
+    H = cfg.n_heads
+    q = q.reshape(Ln, -1, H, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    # absorbed query: q_lat = q_nope @ W_uk (r wide, per head)
+    w_kv_b = ap["w_kv_b"].reshape(Ln, m.kv_lora_rank, H,
+                                  m.qk_nope_dim + m.v_head_dim)
+    w_uk = w_kv_b[..., :m.qk_nope_dim]                    # (L, r, H, nope)
+    q_lat = torch.einsum("lthn,lrhn->lthr", q_nope, w_uk)  # (L, T, H, r)
+    stats = _gaussian(torch.cat([q_lat, q_rope], dim=-1))
+    return QueryStats(stats.mu[:, None], stats.sig2[:, None])
+
+
+def score_rows(cache: Dict[str, Any]) -> torch.Tensor:
+    """The rows kernel C scores, (L, B, S, KV, dk): a GQA cache's k, or an
+    MLA cache's latent rows [c_kv ; k_rope] as one KV head (KV 1, dk
+    r + rope)."""
+    if "k" in cache:
+        return cache["k"]
+    lat = torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)
+    return lat[:, :, :, None, :]
 
 
 def score_chunk(cfg: ModelConfig, cache: Dict[str, Any], stats: QueryStats,
@@ -59,11 +100,12 @@ def score_chunk(cfg: ModelConfig, cache: Dict[str, Any], stats: QueryStats,
     """Keep-scores of every item of a prefill chunk, in one call of the
     Expected-Attention kernel over all layers and items (the JAX package
     maps its kernel over the layers with `jax.vmap`, item by item).
-    cache["k"]: (L, B, S, KV, dk); `lengths`: B ints. Returns (L, B, S)
+    The cache's rows are `score_rows`: GQA k (L, B, S, KV, dk), MLA latent
+    rows (L, B, S, 1, r + rope); `lengths`: B ints. Returns (L, B, S)
     float32, the mean over KV heads, -inf at and beyond each item's
     length. A score depends only on its own K row and its layer's stats,
     so an item's scores are the same, bit for bit, alone or in a chunk."""
-    k = cache["k"]
+    k = score_rows(cache)
     scores = KOPS.expected_attention_scores(
         k, stats.mu, stats.sig2, backend=kernels).mean(-1)   # (L, B, S)
     pos = torch.arange(k.shape[2], device=scores.device)
@@ -75,7 +117,7 @@ def score_chunk(cfg: ModelConfig, cache: Dict[str, Any], stats: QueryStats,
 def score_positions(cfg: ModelConfig, cache: Dict[str, Any],
                     stats: QueryStats, length: int, kernels=None
                     ) -> torch.Tensor:
-    """Per-layer keep-scores for one item. cache["k"]: (L, 1, S, KV, dk).
+    """Per-layer keep-scores for one item (cache leaves (L, 1, S, ...)).
     Returns (L, S) float32, -inf at and beyond `length` (`score_chunk`
     at B 1)."""
     return score_chunk(cfg, cache, stats, [length], kernels)[:, 0]
@@ -95,20 +137,21 @@ def compress_item_cache(cfg: ModelConfig, cache: Dict[str, Any],
                         kernels=None) -> Tuple[Dict[str, torch.Tensor], int]:
     """Compress one item's cache (batch dim 1) to keep (1-ratio) tokens.
 
-    Returns ({"k", "v": (L, S', KV, dh) CPU tensors}, new_length). Kept
-    positions stay in order. `scores` (from score_positions) may be passed
-    in: they do not depend on the ratio, so one item's scores serve every
-    rung of its ladder."""
+    Returns ({"k", "v": (L, S', KV, dh)} or MLA's {"c_kv", "k_rope":
+    (L, S', .)}, CPU tensors; new_length). Kept positions stay in order.
+    `scores` (from score_positions) may be passed in: they do not depend
+    on the ratio, so one item's scores serve every rung of its ladder."""
+    keys = cache_keys(cfg)
     if ratio <= 0.0:
         return {key: cache[key][:, 0, :length].cpu()
-                for key in ("k", "v")}, length
+                for key in keys}, length
     keep = max(4, int(round((1.0 - ratio) * length)))
     if scores is None:
         scores = score_positions(cfg, cache, stats, length, kernels)
     idx = top_k_positions(scores, keep)                   # (L, keep)
     out = {}
-    for key in ("k", "v"):
-        arr = cache[key][:, 0]                            # (L, S, KV, dh)
+    for key in keys:
+        arr = cache[key][:, 0]                            # (L, S, ...)
         gi = idx.reshape(idx.shape + (1,) * (arr.dim() - 2)).expand(
             idx.shape + arr.shape[2:])
         out[key] = torch.gather(arr, 1, gi).cpu()

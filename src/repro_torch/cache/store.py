@@ -9,7 +9,7 @@ returns a decode-ready cache on the requested device.
 
 Shard format. float32 and int8 shards are byte-compatible with the JAX
 package's store in both directions: keys `__length__`, `k`, `v` (and
-`k_scale`, `v_scale`). numpy has no bfloat16, so a bfloat16 array is
+`k_scale`, `v_scale`), or MLA's `c_kv`, `k_rope`. numpy has no bfloat16, so a bfloat16 array is
 stored as its uint16 bit pattern, and the shard names those keys in a
 string array `__bf16__`; `load_batch` reinterprets them as bfloat16.
 Keys that start with `__` are metadata: they count toward no byte total.
@@ -35,7 +35,7 @@ from repro_torch.device import resolve_device
 
 META_FILE = "_meta.jsonl"
 BF16_KEY = "__bf16__"
-SEQ_KEYS = {"k", "v", "k_scale", "v_scale"}
+SEQ_KEYS = {"k", "v", "c_kv", "k_rope", "k_scale", "v_scale"}
 
 
 @dataclass(frozen=True)

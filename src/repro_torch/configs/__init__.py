@@ -1,8 +1,24 @@
-"""Architecture configs of the port: ``get_config("<arch-id>")``."""
-from repro_torch.configs import stretto_llama_8b
+"""Architecture configs of the port: ``get_config("<arch-id>")``.
+
+Copies of the JAX package's eleven configs (`repro.configs`). hymba-1.5b
+and rwkv6-1.6b register, but their models wait for a later slice
+(`models.transformer.model_template` raises; ROADMAP.md)."""
+from repro_torch.configs import (dbrx_132b, deepseek_v2_lite_16b, gemma3_27b,
+                                 granite_8b, hymba_1p5b, llava_next_34b,
+                                 minicpm3_4b, minitron_8b, musicgen_medium,
+                                 rwkv6_1p6b, stretto_llama_8b)
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (stretto_llama_8b,)}
+REGISTRY = {
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        granite_8b, minicpm3_4b, gemma3_27b, minitron_8b, llava_next_34b,
+        hymba_1p5b, musicgen_medium, deepseek_v2_lite_16b, dbrx_132b,
+        rwkv6_1p6b, stretto_llama_8b,
+    )
+}
+
+ASSIGNED = tuple(n for n in REGISTRY if n != "stretto-llama-8b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -12,4 +28,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "REGISTRY",
-           "get_config"]
+           "ASSIGNED", "get_config"]

@@ -7,8 +7,9 @@ keeps its own so it never imports the JAX package. The TPU shape cells
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -48,7 +49,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
 
-    # token-mixer kind: gqa | mla | hymba | rwkv6 (the port runs gqa)
+    # token-mixer kind: gqa | mla | hymba | rwkv6 (the port runs gqa, mla)
     attn_kind: str = "gqa"
 
     # sliding-window / local:global structure.
@@ -117,3 +118,45 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.moe.n_experts > 0
+
+    @property
+    def embed_scale(self) -> Optional[float]:
+        """The factor the token (or frontend) embeddings are scaled by in
+        the model dtype: sqrt(d_model) for gemma3, as the JAX package's
+        forward does; None elsewhere."""
+        return math.sqrt(self.d_model) if self.name.startswith("gemma3") \
+            else None
+
+    @property
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + layers + head)."""
+        d, L = self.d_model, self.n_layers
+        n = self.vocab_size * d                      # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d                 # lm head
+        per_layer = 2 * d                            # two RMSNorm scales
+        if self.attn_kind == "gqa" or self.attn_kind == "hymba":
+            q = d * self.n_heads * self.d_head
+            kv = 2 * d * self.n_kv_heads * self.d_head
+            o = self.n_heads * self.d_head * d
+            per_layer += q + kv + o
+            if self.attn_kind == "hymba":
+                di = self.ssm.expand * d
+                per_layer += d * 2 * di + di * self.ssm.d_conv \
+                    + di * (2 * self.ssm.d_state + 2) + di * d
+        elif self.attn_kind == "mla":
+            m = self.mla
+            qdim = self.n_heads * (m.qk_nope_dim + m.qk_rope_dim)
+            per_layer += (d * m.q_lora_rank + m.q_lora_rank * qdim) if m.q_lora_rank else d * qdim
+            per_layer += d * (m.kv_lora_rank + m.qk_rope_dim)
+            per_layer += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_head_dim)
+            per_layer += self.n_heads * m.v_head_dim * d
+        elif self.attn_kind == "rwkv6":
+            per_layer += 6 * d * d + 2 * d * self.d_ff
+        if self.is_moe:
+            e = self.moe
+            per_layer += d * e.n_experts                                  # router
+            per_layer += 3 * d * e.d_ff_expert * (e.n_experts + e.n_shared_experts)
+        elif self.attn_kind != "rwkv6":
+            per_layer += 3 * d * self.d_ff                                # swiglu
+        return n + L * per_layer

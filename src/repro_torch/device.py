@@ -23,6 +23,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def canonical(device) -> torch.device:
+    """`device` with its index filled in ("cuda" is the current card),
+    so two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def torch_dtype(name) -> torch.dtype:
     """A config's dtype string ('float32', 'bfloat16', ...) as torch."""
     if isinstance(name, torch.dtype):

@@ -1,6 +1,7 @@
-"""Layer primitives of the GQA model, in PyTorch.
+"""Layer primitives of the model zoo, in PyTorch.
 
-The port of the GQA subset of `repro.models.layers`, with the same
+The port of `repro.models.layers` for the families that keep an
+attention cache (GQA, MLA, and their MoE feed-forwards), with the same
 conventions:
   - activations x: (B, S, d_model) in the model dtype
   - reductions (softmax / norm) run in float32
@@ -9,9 +10,13 @@ conventions:
   - the per-layer window is data: a plain int per layer, GLOBAL_WINDOW
     meaning full attention
 
-Decode attention, and full-sequence attention on the card, go through
-`kernels.ops`, which launches the hand-written CUDA kernels for CUDA
-tensors.
+GQA decode attention, and GQA full-sequence attention on the card, go
+through `kernels.ops`, which launches the hand-written CUDA kernels for
+CUDA tensors. MLA attention and the MoE feed-forward are plain torch ops,
+as they are plain jnp in the JAX package (no Pallas kernel there); MLA's
+full-sequence attention is the blocked `flash_attention`, its decode the
+absorbed MQA over the latent cache in float32. The SSM mixers (Mamba,
+Hymba, RWKV6) wait for a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -221,3 +226,192 @@ def gqa_new_kv_multi(p, x, cfg: ModelConfig, positions):
 
 def swiglu_mlp(p, x):
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (minicpm3 / deepseek-v2-lite)
+# ---------------------------------------------------------------------------
+# The cache is the latent stream: c_kv (B, S, kv_lora) and k_rope
+# (B, S, qk_rope_dim); the compression ladder scores its rows.
+
+def mla_project_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)) in x's dtype."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    if m.q_lora_rank:
+        q = (x @ p["wq_a"]) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_latents(p, x, cfg: ModelConfig, positions):
+    """Latent stream for caching: c_kv (B, S, r), k_rope (B, S, rope)."""
+    m = cfg.mla
+    ckv_rope = x @ p["w_kv_a"]                       # (B, S, r + rope)
+    c_kv, k_rope = ckv_rope[..., :m.kv_lora_rank], \
+        ckv_rope[..., m.kv_lora_rank:]
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[..., None, :], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_attn_full(p, x, cfg: ModelConfig, window, positions):
+    """Prefill path, not absorbed: K / V expanded per head, then the
+    blocked `flash_attention`. Returns (attn_out, (c_kv, k_rope))."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = mla_project_q(p, x, cfg, positions)
+    c_kv, k_rope = mla_latents(p, x, cfg, positions)
+    kv = (c_kv @ p["w_kv_b"]).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_dim)], dim=-1)
+    out = flash_attention(q, k, v, window, block_q=FLASH_BLOCK,
+                          block_k=FLASH_BLOCK)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ p["wo"], (c_kv, k_rope)
+
+
+def mla_attn_decode(p, x, cfg: ModelConfig, window, cache_ckv, cache_krope,
+                    lengths):
+    """Absorbed MLA decode: MQA over the latent cache, in float32.
+
+        score_h(t, s) = q_nope_h W_uk_h . c_kv_s + q_rope_h . k_rope_s
+        out_h         = (softmax . c_kv) W_uv_h
+
+    x: (R, 1, d) with R >= B, the cache's batch (rows past B pad the
+    projections to a pinned row count and are not attended); cache_ckv
+    (B, S, r), cache_krope (B, S, rope) already holding this step's
+    latents at lengths-1. Returns (R, 1, d)."""
+    m = cfg.mla
+    R, B = x.shape[0], lengths.shape[0]
+    H = cfg.n_heads
+    positions = pad_rows((lengths - 1)[:, None], R)
+    q_nope, q_rope = mla_project_q(p, x, cfg, positions)     # (R, 1, H, .)
+    q_nope, q_rope = q_nope[:B, 0], q_rope[:B, 0]            # (B, H, .)
+    w_kv_b = p["w_kv_b"].reshape(m.kv_lora_rank, H,
+                                 m.qk_nope_dim + m.v_head_dim)
+    w_uk = w_kv_b[..., :m.qk_nope_dim]                       # (r, H, nope)
+    w_uv = w_kv_b[..., m.qk_nope_dim:]                       # (r, H, v)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_uk.float())
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    ckv = cache_ckv.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+         + torch.einsum("bhp,bsp->bhs", q_rope.float(),
+                        cache_krope.float())) * scale
+    S = cache_ckv.shape[1]
+    pos = torch.arange(S, device=x.device)[None, :]
+    lens = lengths.long()[:, None]
+    mask = (pos < lens) & ((lens - 1) - pos < window)
+    s = torch.where(mask[:, None, :], s, torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", pr, ckv)
+    out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv.float())
+    out = out.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+    return pad_rows(out, R) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE MLP: GShard-style dense capacity dispatch, and a row-local scatter
+# ---------------------------------------------------------------------------
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, in
+    descending order; equal values keep the lower index first, as
+    `jax.lax.top_k` does (a stable descending sort)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]
+
+
+def moe_mlp(p, x, cfg: ModelConfig, impl: str = "auto"):
+    """MoE feed-forward over x (B, S, d), as the JAX package's. The router
+    softmax, top-k gates, dispatch and combine run in float32; the expert
+    products in the model dtype. Capacity max(4, cf k T / E) depends on
+    T = B S, so a token's output depends on the rows beside it.
+
+    - "dense": one-hot dispatch / combine (GShard / Switch): a (T, E, C)
+      dispatch tensor, each (expert, slot) holding at most one token.
+    - "scatter": positions counted per batch row, tokens scattered into
+      per-expert buffers of capacity max(4, cf k S / E) per row.
+    "auto", which the model's layers use, picks dense for T <= 8192 and
+    scatter above, as the JAX package's default does."""
+    e = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    x_flat = x.reshape(T, d)
+    if impl == "auto":
+        impl = "dense" if T <= 8192 else "scatter"
+    logits = (x_flat @ p["router"]).float()                    # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = _top_k(probs, e.top_k)                    # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    ex = p["experts"]
+    if impl == "dense":
+        capacity = min(int(max(4, e.capacity_factor * e.top_k * T
+                               / e.n_experts)), T)
+        onehot = F.one_hot(idx, e.n_experts).float()           # (T, k, E)
+        flat = onehot.reshape(T * e.top_k, e.n_experts)
+        pos = (torch.cumsum(flat, dim=0) - flat).reshape(T, e.top_k,
+                                                         e.n_experts)
+        keep = (pos < capacity) & (onehot > 0)
+        pos_kept = torch.where(keep, pos, torch.zeros_like(pos)).sum(-1) \
+            .long()                                            # (T, k)
+        keep_tok = keep.any(-1).float()                        # (T, k)
+        cap_oh = F.one_hot(pos_kept, capacity).float()         # (T, k, C)
+        # "tke,tkc,tk->tec": one nonzero term per (t, e), so exact in any
+        # order
+        disp = torch.bmm((onehot * keep_tok[..., None]).transpose(1, 2),
+                         cap_oh)                               # (T, E, C)
+        gate_e = (onehot * gate_vals[..., None]).sum(1)        # (T, E)
+        comb = disp * gate_e[..., None]                        # (T, E, C)
+        EC = e.n_experts * capacity
+        xin = (disp.reshape(T, EC).t() @ x_flat.float()).reshape(
+            e.n_experts, capacity, d).to(x.dtype)
+        h = silu(torch.bmm(xin, ex["w_gate"])) * torch.bmm(xin, ex["w_up"])
+        eo = torch.bmm(h, ex["w_down"])                        # (E, C, d)
+        y = (comb.reshape(T, EC) @ eo.float().reshape(EC, d)).to(x.dtype)
+        if e.n_shared_experts:
+            y = y + swiglu_mlp(p["shared"], x_flat)
+        return y.reshape(B, S, d)
+    k = e.top_k
+    cap = min(int(max(4, e.capacity_factor * k * S / e.n_experts)), S * k)
+    idx_r = idx.reshape(B, S * k)
+    gate_r = gate_vals.reshape(B, S * k)
+    oh = F.one_hot(idx_r, e.n_experts)
+    pos = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1)        # row-local
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    # slot -> source token; dropped tokens go to a dump slot (index cap)
+    src_tok = (torch.arange(S * k, device=x.device) // k).expand(B, S * k)
+    scat_idx = idx_r * (cap + 1) + torch.where(
+        keep, safe_pos, torch.full_like(safe_pos, cap))
+    slot_flat = torch.full((B, e.n_experts * (cap + 1)), -1,
+                           dtype=torch.long, device=x.device)
+    slot_flat = slot_flat.scatter(1, scat_idx, src_tok)
+    slot_tok = slot_flat.reshape(B, e.n_experts, cap + 1)[:, :, :cap]
+    valid = slot_tok >= 0
+    flat_slot = torch.clamp(slot_tok, 0, S - 1).reshape(B, -1)
+    buf = torch.gather(x, 1, flat_slot[..., None].expand(-1, -1, d))
+    buf = buf.reshape(B, e.n_experts, cap, d)
+    buf = torch.where(valid[..., None], buf, torch.zeros_like(buf))
+    h = silu(torch.einsum("becd,edf->becf", buf, ex["w_gate"])) \
+        * torch.einsum("becd,edf->becf", buf, ex["w_up"])
+    eo = torch.einsum("becf,efd->becd", h, ex["w_down"])
+    comb_idx = idx_r * cap + safe_pos
+    rows = torch.gather(eo.reshape(B, e.n_experts * cap, d), 1,
+                        comb_idx[..., None].expand(-1, -1, d))
+    w = torch.where(keep, gate_r, torch.zeros_like(gate_r))
+    y = (rows.float() * w[..., None]).reshape(B, S, k, d).sum(2) \
+        .to(x.dtype)
+    if e.n_shared_experts:
+        y = y + swiglu_mlp(p["shared"], x_flat).reshape(B, S, d)
+    return y

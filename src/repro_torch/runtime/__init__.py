@@ -5,7 +5,8 @@
   backend.py   — Backend protocol + Oracle / KVCache / Reference backends
                  and the engine pool (PoolBackend)
   executor.py  — streaming partitioned cascade executor (StageStats)
-  dispatch.py  — flush dispatch: inline / thread pool (STRETTO_DISPATCHER)
+  dispatch.py  — flush dispatch: inline / thread pool, and the partition
+                 scatter: sharded / mesh (STRETTO_DISPATCHER)
   plan_utils.py — gold plans, gold membership, PipelineData lifting and
                  selectivity estimates for the planner
   tree.py      — join-tree execution: both sides, then the pair cascade
@@ -33,6 +34,7 @@ _EXPORTS = {
     "iter_plan": "repro_torch.runtime.executor",
     "run_operator": "repro_torch.runtime.executor",
     "stage_stats_by_engine": "repro_torch.runtime.executor",
+    "merge_stage_stats": "repro_torch.runtime.executor",
     "gold_plan_for": "repro_torch.runtime.plan_utils",
     "gold_membership": "repro_torch.runtime.plan_utils",
     "pipelines_data": "repro_torch.runtime.plan_utils",
@@ -42,6 +44,8 @@ _EXPORTS = {
     "backend_engines": "repro_torch.runtime.dispatch",
     "InlineDispatcher": "repro_torch.runtime.dispatch",
     "ThreadPoolDispatcher": "repro_torch.runtime.dispatch",
+    "ShardedDispatcher": "repro_torch.runtime.dispatch",
+    "MeshDispatcher": "repro_torch.runtime.dispatch",
     "resolve_dispatcher": "repro_torch.runtime.dispatch",
     "effective_spec": "repro_torch.runtime.dispatch",
     "DISPATCHER_ENV": "repro_torch.runtime.dispatch",

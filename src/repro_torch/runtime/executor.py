@@ -1,7 +1,6 @@
 """Streaming cascade executor — the single plan-execution path.
 
-The port of `repro.runtime.executor` (the streaming path; the
-partition-scatter path waits with its dispatchers).
+The port of `repro.runtime.executor`.
 
 Executes a PhysicalPlan over a corpus in fixed-size partitions: relational
 operators first, then the DP-ordered physical stages. Each stage runs
@@ -21,8 +20,9 @@ late cascade stages (which see few survivors per partition) running at
 engine-friendly batch sizes instead of degenerating to tiny calls.
 
 Stage flushes are independent batch calls, so *where* they run is
-pluggable (runtime/dispatch.py): inline on the calling thread or
-overlapped on a thread pool. The executor
+pluggable (runtime/dispatch.py): inline on the calling thread, overlapped
+on a thread pool, or — at the partition-loop level — scattered across
+corpus shards whose bool decision arrays merge at the end. The executor
 owns all scheduling state; dispatchers only run the pure batch -> scores
 operator call, and completions are applied in strict submission order, so
 every dispatcher produces identical per-tuple decisions.
@@ -43,7 +43,8 @@ final RuntimeResult, and ``iter_plan`` is a generator that additionally
 yields a PartitionResult the moment every tuple of a partition has fully
 cleared the cascade — decisions for a partition are final as soon as its
 tuples have passed (or been skipped by) every stage, which under
-coalescing can happen well before later partitions execute.
+coalescing can happen well before later partitions execute. That is the
+incremental-delivery path the api layer's ``SemFrame.stream()`` exposes.
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ from repro_torch.core.logical import Query, SemFilter, SemMap, SemTopK
 from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
 from repro_torch.runtime.backend import Backend, as_backend
 from repro_torch.runtime.dispatch import (DEFAULT_COALESCE, FlushTask,
+                                          InlineDispatcher,
                                           resolve_dispatcher)
 from repro_torch.runtime.kernel import decide, gold_decide
 
@@ -123,7 +125,7 @@ class StageStats:
 
     def merge(self, other: "StageStats") -> None:
         """Fold another stats row for the same stage into this one — the
-        single counter-summation used by the stream's
+        single counter-summation used by shard merging and the stream's
         live telemetry, so a new counter field cannot be summed in one
         place and silently dropped in another."""
         self.wall_s += other.wall_s
@@ -189,6 +191,13 @@ class RuntimeResult:
     #                                       used (None: whole corpus)
     coalesce: Optional[int] = None        # effective flush threshold
     #                                       actually used
+    # SemTopK deferred-cut export (sharded execution only): when a shard
+    # runs with the rank cut deferred, it reports per-pipeline raw gold
+    # ranking scores (NaN = never gold-scored) and the candidacy mask;
+    # the shard merger concatenates them and applies ONE global cut, so
+    # no shard ever cuts locally. None on every normally-cut result.
+    topk_scores: Optional[Dict[int, np.ndarray]] = None
+    topk_cand: Optional[Dict[int, np.ndarray]] = None
     # wire telemetry of the run's remote engine members (calls, retries,
     # fallbacks, rtt percentiles, bytes on wire — see
     # repro_torch.remote.client.remote_run_info). None when the session has
@@ -216,7 +225,9 @@ class PartitionResult:
     Summing the deltas of every emitted partition reproduces the final
     RuntimeResult.stage_stats exactly — integer counters bit-for-bit,
     float wall times up to summation order — so a streaming consumer can
-    maintain live, truthful progress telemetry at zero extra cost."""
+    maintain live, truthful progress telemetry at zero extra cost. Under
+    a sharding dispatcher each partition is one corpus shard and its
+    stage_stats are that shard's full per-stage stats."""
     index: int                            # partition ordinal, corpus order
     lo: int                               # global start index (inclusive)
     hi: int                               # global stop index (exclusive)
@@ -225,11 +236,19 @@ class PartitionResult:
     #                                       one entry per SemMap in the query
     #                                       (uncommitted tuples hold 0)
     stage_stats: List[StageStats] = field(default_factory=list)
-    wall_s: float = 0.0                   # engine time elapsed since the
+    wall_s: float = 0.0                   # streaming dispatch: engine
+    #                                       time elapsed since the
     #                                       previous emission (first:
     #                                       since start; consumer hold at
     #                                       yields excluded) — deltas sum
-    #                                       to <= the run's wall_s
+    #                                       to <= the run's wall_s.
+    #                                       Sharding dispatch: the shard's
+    #                                       own elapsed execution; shards
+    #                                       overlap, so these do NOT sum
+    #                                       to elapsed time (they sum to
+    #                                       ~n_workers x it) — use the
+    #                                       final RuntimeResult.wall_s
+    #                                       for end-to-end elapsed
 
     def __len__(self) -> int:
         return self.hi - self.lo
@@ -413,11 +432,13 @@ class _CascadeState:
             chosen = order[cand[order]][:self.sem_ops[li].k]
             self.accepted[li][chosen] = True
 
-    def result_mask(self) -> np.ndarray:
+    def result_mask(self, ignore_topk: bool = False) -> np.ndarray:
         result = self.alive.copy()
         for li, op in enumerate(self.sem_ops):
             if isinstance(op, SemMap):
                 continue            # maps never reject
+            if ignore_topk and isinstance(op, SemTopK):
+                continue            # deferred cut (sharded merge owns it)
             result &= self.accepted[li]
         result &= self._value_rel_mask(0, self.n_items)
         result &= self._row_rel_mask(0, self.n_items)
@@ -455,7 +476,7 @@ def run_plan(plan: PhysicalPlan, query: Query, items: Sequence[Any],
         over — keep them in sync when overriding). Buffers always flush
         once ingestion finishes.
     dispatcher — where stage flushes run: a runtime.dispatch Dispatcher,
-        a spec string (``inline`` | ``threads[:N]``),
+        a spec string (``inline`` | ``threads[:N]`` | ``sharded[:N]``),
         or None to read the STRETTO_DISPATCHER environment variable.
         Scheduling is deterministic under every dispatcher; accepted /
         map_values are bit-identical whenever per-tuple scores do not
@@ -481,14 +502,26 @@ def iter_plan(plan: PhysicalPlan, query: Query, items: Sequence[Any],
     value. Execution is identical to ``run_plan`` (same schedule, same
     decisions) — the yields only observe state, never steer it.
 
-    Delivery is genuinely incremental: early partitions are emitted while
-    later ones are still executing.
+    With a flush dispatcher (inline / threads) delivery is genuinely
+    incremental: early partitions are emitted while later ones are still
+    executing. A sharding dispatcher scatters the partition loop itself,
+    so it emits one PartitionResult per corpus shard, after the scatter
+    completes.
     """
     backend = as_backend(backend)
     disp, owned = resolve_dispatcher(dispatcher)
     try:
-        result = yield from _stream_streaming(plan, query, items, backend,
-                                              partition_size, coalesce, disp)
+        # sharding dispatchers scatter the partition loop itself (a
+        # 1-shard scatter degenerates to one inline streaming pass);
+        # flush dispatchers plug into the streaming loop directly
+        if hasattr(disp, "map_shards"):
+            result = yield from _stream_sharded(plan, query, items, backend,
+                                                partition_size, coalesce,
+                                                disp)
+        else:
+            result = yield from _stream_streaming(plan, query, items,
+                                                  backend, partition_size,
+                                                  coalesce, disp)
         return result
     finally:
         if owned:
@@ -504,9 +537,18 @@ def _drain(gen) -> RuntimeResult:
             return stop.value
 
 
+def _run_streaming(plan: PhysicalPlan, query: Query, items: Sequence[Any],
+                   backend: Backend, partition_size: Optional[int],
+                   coalesce: Optional[int], disp,
+                   topk_cut: bool = True) -> RuntimeResult:
+    return _drain(_stream_streaming(plan, query, items, backend,
+                                    partition_size, coalesce, disp,
+                                    topk_cut=topk_cut))
+
+
 def _stream_streaming(plan: PhysicalPlan, query: Query, items: Sequence[Any],
                       backend: Backend, partition_size: Optional[int],
-                      coalesce: Optional[int], disp
+                      coalesce: Optional[int], disp, topk_cut: bool = True
                       ) -> Generator[PartitionResult, None, RuntimeResult]:
     sem_ops = query.semantic_ops
     N = len(items)
@@ -696,15 +738,19 @@ def _stream_streaming(plan: PhysicalPlan, query: Query, items: Sequence[Any],
             complete_oldest()
         yield from emit(ready_partitions())
     if holdback:
-        # every tuple is settled: apply the rank cut, then release all
-        # held partitions at once
-        state.finalize_topk()
+        # every tuple is settled: apply (or defer) the rank cut, then
+        # release all held partitions at once
+        if topk_cut:
+            state.finalize_topk()
         holdback = False
     yield from emit(ready_partitions())   # all settled post-drain
 
+    deferred = None if topk_cut or not state.topk_scores else (
+        {li: s.copy() for li, s in state.topk_scores.items()},
+        {li: state.topk_candidates(li) for li in state.topk_scores})
     executed = [sg for sg in stats if sg.n_batches > 0]
     return RuntimeResult(
-        accepted=state.result_mask(),
+        accepted=state.result_mask(ignore_topk=deferred is not None),
         map_values=state.map_values,
         runtime_s=sum(sg.wall_s for sg in executed),
         stage_stats=executed,
@@ -713,14 +759,19 @@ def _stream_streaming(plan: PhysicalPlan, query: Query, items: Sequence[Any],
         dispatcher=disp.name, n_workers=disp.n_workers,
         wall_s=active_s + (time.perf_counter() - seg_t0), plan=plan,
         partition_size=None if partition_size is None else part,
-        coalesce=coalesce)
+        coalesce=coalesce,
+        topk_scores=None if deferred is None else deferred[0],
+        topk_cand=None if deferred is None else deferred[1])
 
 
 def stage_stats_by_engine(stage_stats: Sequence[StageStats]
                           ) -> Dict[str, Dict[str, Any]]:
     """Exact per-engine execution totals: each stage runs on exactly one
     engine, so summing its counters by the engine tag partitions the
-    run's totals. Single-engine runs report one "" bucket."""
+    run's totals — per-engine wall_s / n_tuples / n_llm_calls / kv_bytes
+    sum back to the whole-run numbers bit-for-bit (integer counters) /
+    up to summation order (floats). Single-engine runs report one ""
+    bucket."""
     out: Dict[str, Dict[str, Any]] = {}
     for sg in stage_stats:
         d = out.setdefault(sg.engine, {"wall_s": 0.0, "n_tuples": 0,
@@ -732,3 +783,130 @@ def stage_stats_by_engine(stage_stats: Sequence[StageStats]
         d["kv_bytes"] += sg.kv_bytes
         d["n_batches"] += sg.n_batches
     return out
+
+
+def merge_stage_stats(per_shard: Sequence[Sequence[StageStats]],
+                      plan: PhysicalPlan) -> List[StageStats]:
+    """Sum per-shard StageStats keyed by (logical_idx, stage, op_name),
+    returned in plan order (executed stages only)."""
+    merged: Dict[Tuple[int, int, str], StageStats] = {}
+    for shard_stats in per_shard:
+        for sg in shard_stats:
+            key = (sg.logical_idx, sg.stage, sg.op_name)
+            m = merged.get(key)
+            if m is None:
+                merged[key] = sg.copy()
+            else:
+                m.merge(sg)
+    out = []
+    for st in plan.stages:
+        key = (st.logical_idx, st.stage, st.op_name)
+        if key in merged:
+            out.append(merged.pop(key))
+    return out
+
+
+def _stream_sharded(plan: PhysicalPlan, query: Query, items: Sequence[Any],
+                    backend: Backend, partition_size: Optional[int],
+                    coalesce: Optional[int], disp
+                    ) -> Generator[PartitionResult, None, RuntimeResult]:
+    """Scatter the partition loop across contiguous corpus shards.
+
+    Per-tuple decisions are partition-invariant (the existing streaming
+    parity guarantee), so each shard can stream through the full cascade
+    independently; only the per-shard bool decision arrays are merged back
+    into corpus order and the StageStats summed. A shard is the natural
+    unit to place on a device of the dispatch mesh or a separate host
+    process: shards fan out on a thread pool over one shared engine, and a
+    dispatcher that exposes ``shard_context`` (MeshDispatcher)
+    additionally pins each shard's engine state and computation onto its
+    own device for the duration of that shard's streaming pass. One
+    PartitionResult is emitted per shard once the scatter
+    completes (shards finish in parallel, so finer-grained emission would
+    not be in corpus order anyway); each carries its shard's full
+    per-stage StageStats, so the per-partition deltas still sum to the
+    merged final stats exactly.
+
+    ``runtime_s`` sums operator time over every shard (total work), while
+    ``wall_s`` is the elapsed scatter wall clock — a K-worker scatter
+    with balanced shards reports wall_s ~= runtime_s / K, the parallel
+    speedup the summed number cannot show.
+    """
+    t_start = time.perf_counter()
+    active_s = 0.0                # engine time only: the clock pauses
+    seg_t0 = t_start              # while the consumer holds a yield
+    N = len(items)
+    bounds = disp.shard_bounds(N)
+    inline = InlineDispatcher()
+    sem_ops = query.semantic_ops
+    map_lis = [li for li, op in enumerate(sem_ops)
+               if isinstance(op, SemMap)]
+    topk_lis = [li for li, op in enumerate(sem_ops)
+                if isinstance(op, SemTopK)]
+
+    shard_ctx = getattr(disp, "shard_context", None)
+
+    def one_shard(i: int, lo: int, hi: int) -> RuntimeResult:
+        # SemTopK: shards must never cut locally — each exports raw gold
+        # ranking scores + candidacy, and ONE global cut runs at merge
+        cut = not topk_lis
+        if shard_ctx is None:
+            return _run_streaming(plan, query, items[lo:hi], backend,
+                                  partition_size, coalesce, inline,
+                                  topk_cut=cut)
+        with shard_ctx(i, backend):
+            return _run_streaming(plan, query, items[lo:hi], backend,
+                                  partition_size, coalesce, inline,
+                                  topk_cut=cut)
+
+    shards = disp.map_shards(one_shard, bounds)
+
+    # global rank cut over the merged shards: identical candidacy and
+    # deterministic tie-break (lower corpus index) reproduce the solo
+    # streaming cut bit-for-bit
+    chosen: Dict[int, np.ndarray] = {}
+    for li in topk_lis:
+        g_scores = np.full(N, np.nan)
+        g_cand = np.zeros(N, bool)
+        for (lo, hi), rr in zip(bounds, shards):
+            g_scores[lo:hi] = rr.topk_scores[li]
+            g_cand[lo:hi] = rr.topk_cand[li]
+        order = np.lexsort((np.arange(N), -g_scores))
+        keep = order[g_cand[order]][:sem_ops[li].k]
+        mask = np.zeros(N, bool)
+        mask[keep] = True
+        chosen[li] = mask
+
+    accepted = np.zeros(N, bool)
+    map_values: Dict[int, np.ndarray] = {}
+    for pi, ((lo, hi), rr) in enumerate(zip(bounds, shards)):
+        acc = rr.accepted
+        for li in topk_lis:
+            acc = acc & chosen[li][lo:hi]
+        accepted[lo:hi] = acc
+        for li, vals in rr.map_values.items():
+            if li not in map_values:
+                map_values[li] = np.zeros(N, object)
+            map_values[li][lo:hi] = vals
+        pr = PartitionResult(
+            pi, lo, hi, acc.copy(),
+            {li: (rr.map_values[li].copy() if li in rr.map_values
+                  else np.zeros(hi - lo, object)) for li in map_lis},
+            stage_stats=rr.stage_stats, wall_s=rr.wall_s)
+        active_s += time.perf_counter() - seg_t0
+        yield pr
+        seg_t0 = time.perf_counter()
+    stats = merge_stage_stats([rr.stage_stats for rr in shards], plan)
+    return RuntimeResult(
+        accepted=accepted,
+        map_values=map_values,
+        runtime_s=sum(rr.runtime_s for rr in shards),
+        stage_stats=stats,
+        n_llm_tuples=sum(rr.n_llm_tuples for rr in shards),
+        n_partitions=sum(rr.n_partitions for rr in shards),
+        dispatcher=disp.name, n_workers=disp.n_workers,
+        wall_s=active_s + (time.perf_counter() - seg_t0), plan=plan,
+        partition_size=None if partition_size is None
+        else max(int(partition_size), 1),
+        coalesce=DEFAULT_COALESCE if coalesce is None
+        else max(int(coalesce), 1))

@@ -18,8 +18,9 @@ The decode path:
     STRETTO_TORCH_KERNELS env var: auto | cuda | ref): on the card, the
     hand-written CUDA kernels;
   - by default the query goes through ONE fused multi-token attention
-    launch per layer (`decode_multi`); `fused=False` (or STRETTO_FUSED=0)
-    feeds the tokens one `decode_step` at a time;
+    launch per layer (`decode_multi`); `fused=False` (or STRETTO_FUSED=0),
+    and every model without fused decode (MLA), feeds the tokens one
+    `decode_step` at a time (a scan flush);
   - repeated flushes of the same (profile, batch) skip the npz read, the
     padding and the H2D copy through a device-resident LRU bounded by
     `memory_budget_bytes` (`device_cache` ctor arg, else
@@ -50,8 +51,13 @@ under the scheduler's merged flushes would drift from its solo run's.
 
 Batch size is memory-bounded: higher compression -> smaller caches ->
 larger batches -> fewer calls (the paper's batching speedup mechanism).
-Multi-device placement (`place_on` onto another device) waits with the
-mesh dispatcher; an engine runs on one device.
+
+Multi-device placement: `place_on(device)` pins the calling thread's
+flushes (cache loads, the weights they decode with, the decode itself)
+onto `device`. On the engine's own device the flushes use the engine's
+own weight tensors; on another device a copy is made once per (model,
+device) and kept. The runtime's MeshDispatcher enters `place_on` per
+corpus shard. The offline build runs on the engine's device.
 """
 from __future__ import annotations
 
@@ -71,10 +77,10 @@ from repro_torch.cache.compression import (QueryStats, calibrate_query_stats,
                                            score_chunk)
 from repro_torch.cache.store import CacheStore, Profile
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical, resolve_device
 from repro_torch.kernels import ops as KOPS
-from repro_torch.models import decode_multi, decode_step, prefill, \
-    supports_fused_decode
+from repro_torch.models import cache_keys, decode_multi, decode_step, \
+    prefill, supports_fused_decode
 
 # Loads pad the cache length to a multiple of the kernels' position chunk
 # (the JAX engine pads to its Pallas block for the same reason). Padded
@@ -131,14 +137,19 @@ class ServingEngine:
         # the dense layers' pinned row count is on; flush_invariance
         # switches it off only to measure what it prevents
         self.pin_rows = True
+        # per-thread placement (place_on) and the weights copied to other
+        # devices, once per (model, device)
+        self._placement_tl = threading.local()
+        self._placed_params: Dict[Tuple[str, Any], Any] = {}
+        self._placed_lock = threading.Lock()
         self.h2d_overlap_s = 0.0
         self.donated_bytes = 0
         self._xfer_lock = threading.Lock()
         self._xfer_tl = threading.local()
-        # device-resident profile cache: (profile.tag, ids, headroom) ->
-        # (cache on device, nbytes, lock held while a flush decodes over
-        # it); one lock serializes lookup-or-load so concurrent flushes of
-        # one key load once
+        # device-resident profile cache: (profile.tag, ids, headroom,
+        # device) -> (cache on device, nbytes, lock held while a flush
+        # decodes over it); one lock serializes lookup-or-load so
+        # concurrent flushes of one key load once
         self._dev_cache: "OrderedDict[Tuple, Tuple[Any, int, Any]]" = \
             OrderedDict()
         self._dev_bytes = 0
@@ -155,14 +166,47 @@ class ServingEngine:
     # ---------------- placement + transfer telemetry ----------------
 
     @contextlib.contextmanager
-    def place_on(self, device, sharding=None):
-        """Single-device engine: placing onto its own device is a no-op;
-        another device raises (multi-device placement is not ported)."""
-        if device is not None and torch.device(device) != self.device:
-            raise NotImplementedError(
-                f"engine runs on {self.device}; placement on {device} waits "
-                f"with the mesh dispatcher")
-        yield
+    def place_on(self, device):
+        """Pin this thread's flushes onto `device`: the weights there (the
+        engine's own tensors on its own device, else a copy made once per
+        (model, device)), the cache loads and the decode. The weights go
+        whole: no path of the port splits a tensor across devices. Nests
+        and restores."""
+        dev = canonical(device)
+        if dev.type != self.device.type:
+            raise ValueError(f"engine on {self.device} cannot be placed on "
+                             f"{dev}")
+        tl = self._placement_tl
+        prev = getattr(tl, "device", None)
+        tl.device = dev
+        try:
+            yield
+        finally:
+            tl.device = prev
+
+    def _placement(self) -> Optional[torch.device]:
+        """This thread's device under `place_on`, or None outside it."""
+        return getattr(self._placement_tl, "device", None)
+
+    def _flush_device(self) -> torch.device:
+        placed = self._placement()
+        return self.device if placed is None else placed
+
+    def _params_for(self, em: EngineModel, model_name: str, device):
+        """The model's weights on `device`: the engine's own tensors where
+        they already lie (never a copy), else a copy made once per (model,
+        device)."""
+        home = em.params["embed"].device
+        dev = canonical(device)
+        if dev == canonical(home):
+            return em.params
+        key = (model_name, dev)
+        with self._placed_lock:
+            got = self._placed_params.get(key)
+            if got is None:
+                got = _tree_to(em.params, dev)
+                self._placed_params[key] = got
+            return got
 
     def _count_xfer(self, h2d_s: float = 0.0, donated: int = 0):
         tl = self._xfer_tl
@@ -205,9 +249,15 @@ class ServingEngine:
         its slice of those scores (the JAX engine rescores item by item and
         rung by rung; the kept sets are the same). Seconds per step
         accumulate in `build_seconds`; `prefill_chunks` counts the chunks
-        prefilled."""
+        prefilled. MLA models keep latent caches, which have no int8 rung:
+        `quant_ratios` on one raises, as in the JAX package."""
         em = self.models[model_name]
         cfg = em.cfg
+        if quant_ratios and cfg.attn_kind != "gqa":
+            raise ValueError(
+                f"int8 KV profiles require a k/v cache; "
+                f"attn_kind={cfg.attn_kind!r} has none")
+        keys = cache_keys(cfg)
         secs = self.build_seconds
         if em.stats is None:
             t0 = time.perf_counter()
@@ -238,7 +288,7 @@ class ServingEngine:
                                      kernels=self.kernels)   # (L, B, S)
                 secs["compress"] += time.perf_counter() - t0
             for bi, it in enumerate(chunk):
-                item_cache = {k: cache[k][:, bi:bi + 1] for k in ("k", "v")}
+                item_cache = {k: cache[k][:, bi:bi + 1] for k in keys}
                 n = len(it.tokens)
                 t0 = time.perf_counter()
                 item_scores = None if scores is None else scores[:, bi]
@@ -280,17 +330,17 @@ class ServingEngine:
                                item_ids[0], quant=profile.quant)
         return min(b, len(item_ids))
 
-    def _run_tokens(self, em: EngineModel, fused: bool, backend: str,
-                    cache, tokens):
+    def _run_tokens(self, em: EngineModel, params, fused: bool,
+                    backend: str, cache, tokens):
         """Final-token logits of the query `tokens` (B, Lq) over `cache`,
         the dense layers at `max_batch` rows when `pin_rows`."""
         rows = self.max_batch if self.pin_rows else None
         if fused:
-            return decode_multi(em.params, em.cfg, cache, tokens=tokens,
+            return decode_multi(params, em.cfg, cache, tokens=tokens,
                                 kernels=backend, rows=rows)[0]
         logits = None
         for t in range(tokens.shape[1]):
-            logits, cache = decode_step(em.params, em.cfg, cache,
+            logits, cache = decode_step(params, em.cfg, cache,
                                         tokens=tokens[:, t:t + 1],
                                         kernels=backend, rows=rows)
         return logits
@@ -341,16 +391,19 @@ class ServingEngine:
 
     def _load_cached(self, em: EngineModel, profile: Profile,
                      ids: Sequence[int], headroom: int, n_real: int):
-        """load_batch through the device-resident LRU. Returns (cache,
-        lock): the lock of the LRU entry, None for a private load."""
+        """load_batch through the device-resident LRU, onto this thread's
+        flush device. Returns (cache, lock): the lock of the LRU entry,
+        None for a private load."""
+        device = self._flush_device()
+
         def load():
             return self.store.load_batch(
                 em.cfg, profile, ids, pad_to_multiple=KERNEL_BLOCK_S,
-                headroom=headroom, n_real=n_real, device=self.device)[0]
+                headroom=headroom, n_real=n_real, device=device)[0]
 
         if not self.device_cache:
             return load(), None
-        key = (profile.tag, tuple(ids), headroom)
+        key = (profile.tag, tuple(ids), headroom, canonical(device))
         with self._dev_lock:
             hit = self._dev_cache.get(key)
             if hit is not None:
@@ -390,13 +443,15 @@ class ServingEngine:
         donate = self.async_h2d and not self.device_cache
         cache, lock = preloaded if preloaded is not None else \
             self._load_for(em, profile, ids, query_tokens, bs)
+        device = self._flush_device()
+        params = self._params_for(em, profile.model_name, device)
         q = torch.tensor([list(query_tokens)] * (len(ids) + pad),
-                         dtype=torch.long, device=self.device)
+                         dtype=torch.long, device=device)
         # the decode writes this query's k/v into an LRU entry's shared
         # tensors: one flush at a time enqueues over it, and the stream
         # runs the decodes in that order
         with lock or contextlib.nullcontext():
-            logits = self._run_tokens(em, fused, backend, cache, q)
+            logits = self._run_tokens(em, params, fused, backend, cache, q)
         if donate:
             donated = _nbytes(cache)
             cache.clear()      # the allocator reuses them once the decode ends
@@ -451,7 +506,7 @@ class ServingEngine:
         confs = np.zeros(len(item_ids), np.float32)
         bs = self._batch_size(profile, item_ids)
         vt = torch.tensor(list(value_tokens), dtype=torch.long,
-                          device=self.device)
+                          device=self._flush_device())
         for s, ids, logits in self._iter_flushes(em, profile, item_ids,
                                                  query_tokens, bs):
             vlogits = logits[:, vt]                        # (B, n_vals)
@@ -497,6 +552,12 @@ def flush_invariance(engine: ServingEngine, model_name: str, ratio: float,
         out[n] = all(np.array_equal(a, b) and np.array_equal(a, c)
                      for a, b, c in zip(alone, first, last))
     return out
+
+
+def _tree_to(tree, device):
+    """A nested dict of tensors copied to `device`."""
+    return {k: (_tree_to(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in tree.items()}
 
 
 def _bucket(n: int) -> int:

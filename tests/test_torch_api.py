@@ -328,16 +328,18 @@ def test_session_runs_on_the_card_unless_told_otherwise():
 
 def test_unported_parts_raise():
     """Remote members are ported now: a remote spec validates as the
-    reference's does. The sharded and mesh dispatchers are not."""
+    reference's does. So are the sharded and mesh dispatchers."""
     from repro_torch.api import EngineSpec, SessionConfig
-    from repro_torch.runtime.dispatch import resolve_dispatcher
+    from repro_torch.runtime.dispatch import (MeshDispatcher,
+                                              ShardedDispatcher,
+                                              resolve_dispatcher)
     remote = EngineSpec("remote", address="127.0.0.1:9")
     assert remote.address == "127.0.0.1:9" and remote.device is None
     with pytest.raises(ValueError, match="host:port"):
         EngineSpec("remote", address="127.0.0.1")
-    for spec in ("sharded:2", "mesh:2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            resolve_dispatcher(spec)
+    for spec, kind in (("sharded:2", ShardedDispatcher),
+                       ("mesh:2", MeshDispatcher)):
+        assert isinstance(resolve_dispatcher(spec)[0], kind)
     # engine pools and tenants are ported: the config validates them
     pool = SessionConfig(engines=(EngineSpec("a"), EngineSpec("b")),
                          gold_engine="b")

@@ -285,13 +285,17 @@ def test_expected_attention_matches_plain(gpu, B, S, KV, G, dk, dtype):
 
 # (L, B, S, KV, G, dk, dtype): the 8B chunks (Session and hand plan), the
 # planted chunks (dk 16: lanes of 16-byte vectors; dk 24: the row kernel),
-# and bf16 dk 18 (element loads)
+# bf16 dk 18 (element loads), and the MLA latent chunks (the row kernel)
 EA_CHUNKS = [(32, 4, 512, 8, 4, 128, torch.bfloat16),
              (4, 16, 1024, 8, 4, 128, torch.bfloat16),
              (2, 16, 160, 2, 1, 16, torch.float32),
              (2, 16, 160, 4, 1, 24, torch.float32),
              (3, 2, 77, 2, 3, 18, torch.bfloat16),
-             (2, 3, 100, 2, 4, 128, torch.float32)]
+             (2, 3, 100, 2, 4, 128, torch.float32),
+             # MLA latent rows [c_kv ; k_rope], one KV head: deepseek's
+             # (r 512 + rope 64, G 16) and minicpm3's (256 + 32, G 40)
+             (27, 4, 512, 1, 16, 576, torch.bfloat16),
+             (6, 4, 512, 1, 40, 288, torch.bfloat16)]
 
 
 def _ea_chunk(seed, L, B, S, KV, G, dk, dtype):
@@ -1008,3 +1012,74 @@ def test_remote_member_on_the_card_matches_the_local_pool(gpu, tmp_path):
         remote.close()
         server.shutdown()
         server.server_close()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_mla_latent_scores_launch_the_kernel(gpu, arch):
+    """`score_chunk` of a reduced-depth MLA model at full width on the
+    card: one launch of C over the latent rows (KV 1, dk r + rope), equal
+    to the plain version's scores."""
+    import dataclasses
+    from repro_torch.cache.compression import calibrate_query_stats, \
+        score_chunk
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    _, cache = prefill(params, cfg, tokens=toks)
+    stats = calibrate_query_stats(params, cfg, tokens=toks)
+    m = cfg.mla
+    assert tuple(stats.mu.shape) == (2, 1, cfg.n_heads,
+                                     m.kv_lora_rank + m.qk_rope_dim)
+    before = EA.expected_attention_scores.launches
+    got = score_chunk(cfg, cache, stats, [256, 200])
+    assert EA.expected_attention_scores.launches == before + 1
+    want = score_chunk(cfg, cache, stats, [256, 200], kernels="ref")
+    live = want.isfinite()
+    assert torch.equal(got.isfinite(), live)
+    _ea_close(got[live], want[live])
+
+
+def test_sharded_planted_bit_equal_to_inline_on_the_card(gpu, tmp_path):
+    """A hand plan over the planted world on the card under sharded:2
+    and mesh:2: decisions, map values and integer StageStats bit-equal to
+    inline (each run from a cold device LRU)."""
+    import math
+
+    import numpy as np
+    from repro_torch.core.logical import Query, SemFilter, SemMap
+    from repro_torch.core.physical import PhysicalPlan, PhysicalPlanStage
+    from repro_torch.data import synthetic as syn
+    from repro_torch.runtime.backend import KVCacheBackend
+    from repro_torch.runtime.executor import run_plan
+    eng, ids = _planted_card_engine(tmp_path)
+    items = syn.make_dataset("flush-inv", 40, seed=3).items
+    stages = [(0, 0, "sm-kv50", 2.5, -3.0, False, False),
+              (1, 0, "sm-kv50", 1.5, -math.inf, True, False),
+              (0, 1, "lg-kv50", 3.0, -4.0, False, False),
+              (0, 2, "lg-kv00", 0.0, 0.0, False, True),
+              (1, 1, "lg-kv00", 0.0, 0.0, True, True)]
+    plan = PhysicalPlan([PhysicalPlanStage(*st, cost=0.1) for st in stages],
+                        [], 0.0, 1.0, 1.0, True)
+    query = Query([SemFilter("t1", 1), SemMap("f2", 2)])
+    backend = KVCacheBackend(eng, sm_ratios=(0.5,), lg_ratios=(0.5,),
+                             include_cheap=False)
+    ints = lambda r: sorted((s.op_name, s.logical_idx, s.stage, s.n_tuples,
+                             s.n_llm_calls, s.kv_bytes)
+                            for s in r.stage_stats)
+    runs = {}
+    for spec in ("inline", "sharded:2", "mesh:2"):
+        eng.evict()
+        runs[spec] = run_plan(plan, query, items, backend, dispatcher=spec)
+    base = runs.pop("inline")
+    for spec, r in runs.items():
+        assert r.dispatcher == spec.split(":")[0]
+        assert np.array_equal(r.accepted, base.accepted)
+        for li in base.map_values:
+            assert np.array_equal(r.map_values[li], base.map_values[li])
+        assert ints(r) == ints(base)
+        assert not eng._placed_params       # the card's own weights

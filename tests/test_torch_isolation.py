@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.remote.protocol", "repro_torch.remote.server",
               "repro_torch.remote.client", "repro_torch.remote.testing",
               "repro_torch.launch.remote_worker",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.launch.mesh",
+              "repro_torch.distributed.sharding",
+              "repro_torch.configs.deepseek_v2_lite_16b"):
         assert m in mods
     # the lazy exports resolve too (a module path in a string is an import)
     code = (

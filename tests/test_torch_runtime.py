@@ -151,8 +151,14 @@ def test_decide_rule_matches_jax():
 
 
 def test_unported_dispatchers_raise():
-    from repro_torch.runtime.dispatch import resolve_dispatcher
-    with pytest.raises(NotImplementedError):
-        resolve_dispatcher("sharded:2")
+    """The partition-scatter dispatchers are ported now: their specs
+    resolve; an unknown spec still raises."""
+    from repro_torch.runtime.dispatch import (MeshDispatcher,
+                                              ShardedDispatcher,
+                                              resolve_dispatcher)
+    d, owned = resolve_dispatcher("sharded:2")
+    assert isinstance(d, ShardedDispatcher) and owned and d.n_shards == 2
+    d, owned = resolve_dispatcher("mesh:2")
+    assert isinstance(d, MeshDispatcher) and owned and d.n_shards == 2
     with pytest.raises(ValueError):
         resolve_dispatcher("bogus")
