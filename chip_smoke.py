@@ -24,7 +24,9 @@ Phases, one JSON line each:
            the FMA body's rows against its own twin; the Expected-Attention
            kernel (C) at the prefill chunks' shapes (every layer and item
            in one launch) and at the MLA latent rows' (dk 576, 288),
-           against its plain version and its twin
+           against its plain version and its twin; B, C and D also at
+           hymba-1.5b's Session shapes (KV 5, G 5, d 64, window 1024 and
+           global), the kernels line's "hymba" entries
   planted  the planted sm/lg world (200 items) under a hand-written
            cascade plan through KVCacheBackend + run_plan; inline vs
            threads:2 bit-identical; the same plan on the CPU equal outside
@@ -149,6 +151,9 @@ Phases, one JSON line each:
   sharded_llama8b  the 8B Session's plan under sharded:2 and mesh:2 the
            same way; the weights' data_ptrs unchanged and never copied,
            each scatter's peak memory within 1 GB of inline's
+  pool_release  a planted two-engine pool Session built, run, closed and
+           deleted with the cyclic collector off, under inline, the
+           scheduler and sharded:2: no ServingEngine left alive
   session_deepseek  deepseek-v2-lite-16b at full width and depth (27
            layers, MLA r 512 + rope 64, 64 routed experts top-6 + 2
            shared, vocab 102400, bfloat16, random weights from a seed)
@@ -161,6 +166,19 @@ Phases, one JSON line each:
            its plan and a hand cascade run again by the port on the CPU
            over the card's store: decisions equal outside the margin,
            integer StageStats
+  session_hymba  hymba-1.5b at full width and depth (32 layers, d_model
+           1600, 25 q / 5 KV heads of 64, window 1024, global layers 0 /
+           15 / 31, Mamba heads d_state 16; bfloat16, random weights)
+           through a Session over 16 x 1536-token items, rungs 0.8 / 0.5 /
+           int8 0.5 / gold: build by step, the Mamba scan's ms per step,
+           plan, execute, peak memory, launches of B, C and D; every rung
+           bit-equal at flushes of 2 up to 16 (flush_invariance); a 4-layer
+           float32 cut on the card and on the CPU as session_deepseek's
+  session_rwkv6  rwkv6-1.6b at full width and depth (24 layers, d_model
+           2048, bfloat16): the rung-less build over 16 x 512-token items,
+           a Session over gold (its ratio-0 profile), no attention kernel,
+           its rung bit-equal across flush sizes; a 4-layer float32 cut's
+           prefill and decode logits on the card against the CPU
   zoo_legs  granite-8b, minitron-8b, gemma3-27b (6 layers: a global one
            beside the 1024 windows), llava-next-34b and musicgen-medium
            (frontend embeddings), dbrx-132b (MoE) at full width, 2
@@ -168,8 +186,10 @@ Phases, one JSON line each:
            tokens (D, tensor-core body, in every layer) and a fused
            decode flush of 2 query tokens (A) held to the plain route
            within 5 % of the largest magnitude, C over the chunk held to
-           its plain version; minicpm3-4b (2 layers): C at its latent
-           shape (KV 1, G 40, dk 288)
+           its plain version; hymba-1.5b (its global layer 0 and a windowed
+           one: D, and B at each of two decode steps, G 5, window 1024);
+           minicpm3-4b (2 layers): C at its latent shape (KV 1, G 40, dk
+           288)
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
@@ -390,17 +410,25 @@ def phase_kernels(torch, flush):
     f32, bf16 = torch.float32, torch.bfloat16
     tol = {f32: 2e-5, bf16: 2e-2}
     rows = {name: [] for name in DECODE + ("expected_attention_scores",)}
-    # (label, B, KV, G, dk, S, dtype, window, main-path shape?)
+    # (label, B, KV, G, dk, S, dtype, window, main-path shape?); the hymba
+    # rows are the hymba Session's flush: 16 items of 1536 tokens and the
+    # query token (lengths 1537) in a cache padded to 1664, KV 5, G 5
     cases = [("planted-sm", 16, 2, 1, 16, 256, f32, GLOBAL, False),
              ("planted-lg", 16, 4, 1, 24, 256, f32, GLOBAL, False),
              ("planted-lg-window", 16, 4, 1, 24, 256, f32, 8, False),
              ("llama8b-S256", 14, 8, 4, 128, 256, bf16, GLOBAL, False),
              ("llama8b-S640", 14, 8, 4, 128, 640, bf16, GLOBAL, False),
-             ("llama8b-S1152", 14, 8, 4, 128, 1152, bf16, GLOBAL, True)]
+             ("llama8b-S1152", 14, 8, 4, 128, 1152, bf16, GLOBAL, True),
+             ("hymba-S1664-w1024", 16, 5, 5, 64, 1664, bf16, 1024, False),
+             ("hymba-S1664-global", 16, 5, 5, 64, 1664, bf16, GLOBAL,
+              False)]
     for label, B, KV, G, dk, S, dt, window, main in cases:
+        hymba = label.startswith("hymba")
         for Lq in (1, 3):
             q, k, v, lengths = _decode_inputs(torch, gen, B, Lq, KV, G, dk,
                                               S, dt, Lq)
+            if hymba:
+                lengths.fill_(HYMBA_LEN + Lq)
             k8, ks = _quantize(torch, k)
             v8, vs = _quantize(torch, v)
             for name in DECODE:
@@ -456,6 +484,9 @@ def phase_kernels(torch, flush):
                         row["library_ms_read"] = time_ms(torch, sdpa, flush,
                                                          mode="read")
                     row["main_path_shape"] = main
+                    row["hymba_path_shape"] = (
+                        label == "hymba-S1664-w1024"
+                        and name == "decode_attention")
                 rows[name].append(row)
                 emit("kernel", **row)
                 if not row["ok"]:
@@ -474,7 +505,8 @@ def _ea_cases(torch, gen, flush):
     item alone, the planted chunks (dk 16: lanes of 16-byte vectors; dk
     24: the row kernel), one layer without the layer axis (the shape
     of the kernel's earlier per-layer calls), and the MLA latent chunks
-    (KV 1, dk 576 deepseek / 288 minicpm3: the row kernel). Against the plain version
+    (KV 1, dk 576 deepseek / 288 minicpm3: the row kernel), and the hymba
+    Session's chunk (L 32, B 16, S 1536, KV 5, G 5, dk 64). Against the plain version
     and C's CPU twin at 2e-5 x max(1, |score|); timed beside the plain
     version under a write and a read L2 flush."""
     from repro_torch.kernels import expected_attention as EA
@@ -492,7 +524,9 @@ def _ea_cases(torch, gen, flush):
              # MLA latent rows [c_kv ; k_rope] as one KV head: the
              # deepseek Session's chunk and minicpm3's at full depth
              ("deepseek-latent-chunk", 27, 4, 512, 1, 16, 576, bf16, False),
-             ("minicpm3-latent-chunk", 62, 4, 512, 1, 40, 288, bf16, False)]
+             ("minicpm3-latent-chunk", 62, 4, 512, 1, 40, 288, bf16, False),
+             # the hymba Session's one prefill chunk (KV 5, G 5, dk 64)
+             ("hymba-session-chunk", 32, 16, 1536, 5, 5, 64, bf16, False)]
     out = []
     for label, L, B, S, KV, G, dk, dt, main in cases:
         lead = (L,) if L else ()
@@ -525,7 +559,8 @@ def _ea_cases(torch, gen, flush):
                    tol="2e-5 x max(1, |score|)", launches=launches,
                    ok=bool(max(rel, rel_twin) <= 2e-5 and launches == 1
                            and math.isfinite(rel + rel_twin)),
-                   main_path_shape=main)
+                   main_path_shape=main,
+                   hymba_path_shape=label.startswith("hymba"))
         del want, twin
         row["kernel_ms"] = time_ms(torch, kern, flush)
         row["kernel_ms_read"] = time_ms(torch, kern, flush, mode="read")
@@ -570,11 +605,12 @@ def _prefill_fma(PA, q, k, v, window, causal):
 def _prefill_cases(torch, gen, tol, flush):
     """Kernel D against the plain version (the attention oracle) and the
     blocked `flash_attention` at the build shapes: the planted models
-    (B 16, S 160, float32, dk 16 / 24: the FMA body) and stretto-llama-8b
-    (B 4, S 512 and 1024, bfloat16: the tensor-core body), windowed and
-    not; one non-causal and one dk != dv case. The 8B rows are also held
-    to the tensor-core body's CPU twin run on the card, and timed beside
-    the twin, the FMA body (on the same inputs) and SDPA.
+    (B 16, S 160, float32, dk 16 / 24: the FMA body), stretto-llama-8b
+    (B 4, S 512 and 1024, bfloat16: the tensor-core body) and hymba-1.5b
+    (B 16, S 1536, KV 5, G 5, d 64, window 1024 and global), windowed and
+    not; one non-causal and one dk != dv case. The 8B and hymba rows are
+    also held to the tensor-core body's CPU twin run on the card, and
+    timed beside the twin, the FMA body (on the same inputs) and SDPA.
     Then an item's rows alone vs in a larger, further-padded batch, in
     both bodies (bit-identical)."""
     import torch.nn.functional as F
@@ -598,7 +634,13 @@ def _prefill_cases(torch, gen, tol, flush):
              ("noncausal-G3", 2, 200, 2, 3, 24, 24, f32, GLOBAL, False,
               False),
              ("dk-ne-dv", 2, 130, 2, 2, 32, 48, f32, 17, True, False),
-             ("dk-ne-dv-bf16", 2, 130, 2, 2, 32, 48, bf16, 17, True, False)]
+             ("dk-ne-dv-bf16", 2, 130, 2, 2, 32, 48, bf16, 17, True, False),
+             # the hymba Session's prefill chunk: 29 of its 32 layers
+             # windowed, the global layers 0 / 15 / 31
+             ("hymba-S1536-w1024", 16, 1536, 5, 5, 64, 64, bf16, 1024, True,
+              False),
+             ("hymba-S1536-global", 16, 1536, 5, 5, 64, 64, bf16, GLOBAL,
+              True, False)]
     out = []
     for label, B, S, KV, G, dk, dv, dt, window, causal, main in cases:
         def rnd(*shape):
@@ -623,9 +665,12 @@ def _prefill_cases(torch, gen, tol, flush):
                    S=S, KV=KV, G=G, dk=dk, dv=dv, dtype=str(dt)[6:],
                    window=window, causal=causal, max_abs_err=err,
                    max_abs_err_vs_blocked=err_blocked, tol=tol[dt],
-                   main_path_shape=main)
+                   main_path_shape=main,
+                   hymba_path_shape=label == "hymba-S1536-w1024")
         errs = [err, err_blocked]
-        llama = label.startswith("llama8b")
+        # the full-width paths' rows: held to the tensor-core twin too,
+        # and timed beside the plain version and SDPA, windowed or not
+        llama = label.startswith(("llama8b", "hymba"))
         if body == "fma":
             row["max_abs_err_vs_twin"] = float((got.float() - ref
                                                 .prefill_attention_fma_twin(
@@ -634,13 +679,21 @@ def _prefill_cases(torch, gen, tol, flush):
                                                .abs().max())
             errs.append(row["max_abs_err_vs_twin"])
         if llama:
+            # the hymba chunk's twin (a Python-blocked algorithm) takes
+            # about 9 s at B 16: held on its first two items (the kernel
+            # is batch-invariant), and not timed
+            nb = 2 if label.startswith("hymba") else B
+
             def twin():
-                return ref.prefill_attention_tc_twin(q, k, v, window=window,
-                                                     causal=causal)
+                return ref.prefill_attention_tc_twin(
+                    q[:nb], k[:nb], v[:nb], window=window, causal=causal)
             row["max_abs_err_vs_twin"] = float(
-                (got.float() - twin().float()).abs().max())
+                (got[:nb].float() - twin().float()).abs().max())
+            row["twin_items"] = nb
             errs.append(row["max_abs_err_vs_twin"])
-            row["twin_ms"] = time_ms(torch, twin, flush, iters=3, warmup=1)
+            if nb == B:
+                row["twin_ms"] = time_ms(torch, twin, flush, iters=3,
+                                         warmup=1)
             row["fma_body_ms"] = time_ms(
                 torch, lambda: _prefill_fma(PA, q, k, v, window, causal),
                 flush)
@@ -3219,6 +3272,78 @@ def phase_remote_llama8b(torch, params, llama):
 SERVE_ITEMS, SERVE_BATCH = 200, 16
 
 
+POOL_RELEASE_ITEMS = 24
+
+
+def phase_pool_release(torch):
+    """A planted two-engine pool Session on the card ("fast": sm kv80;
+    "accurate": lg and its gold), built, run (the quickstart filter),
+    closed and deleted with the cyclic garbage collector off, under
+    inline, the scheduler and sharded:2: no ServingEngine may be left
+    alive (counted with weak references); the card memory still allocated
+    after it, against before it, is reported (module-level buffers such
+    as the decode kernel's arrival counters stay). Its launches are not
+    counted on a path."""
+    import weakref
+    from repro_torch.api import EngineSpec, Session, SessionConfig
+    from repro_torch.core.optimizer import PlannerConfig
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving import engine as E
+    alive = weakref.WeakSet()
+    real = E.ServingEngine.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        alive.add(self)
+
+    items = syn.make_dataset("pool-release", POOL_RELEASE_ITEMS,
+                             seed=7).items
+    rows = []
+    E.ServingEngine.__init__ = init
+    try:
+        for mode in ("inline", "scheduler", "sharded:2"):
+            root = os.path.join(WORK, "pool-release")
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            gc.disable()
+            try:
+                sess = Session(SessionConfig(
+                    engines=(EngineSpec("fast", models=("sm",),
+                                        sm_ratios=(0.8,), lg_ratios=(),
+                                        cache_dir=os.path.join(root, "f")),
+                             EngineSpec("accurate", models=("lg",),
+                                        sm_ratios=(), lg_ratios=(),
+                                        include_cheap=False,
+                                        cache_dir=os.path.join(root, "a"))),
+                    gold_engine="accurate",
+                    planner=PlannerConfig(steps=20, restarts=1,
+                                          snapshots=2)))
+                frame, sched = _frame(sess, items), None
+                if mode == "scheduler":
+                    with sess.scheduler() as sched:
+                        result = sched.submit(frame).result()
+                else:
+                    result = frame.execute(dispatcher=mode)
+                n_during = len(alive)
+                sess.close()
+                del sess, frame, result, sched
+                torch.cuda.synchronize()
+                left = len(alive)
+                held = torch.cuda.memory_allocated() - before
+            finally:
+                gc.enable()
+            shutil.rmtree(root, ignore_errors=True)
+            rows.append(dict(mode=mode, engines_during=n_during,
+                             engines_left=left, bytes_held_after=held))
+            if n_during != 2 or left:
+                die("pool_release", f"{mode}: {left} of {n_during} engines "
+                                    f"alive after close() and del")
+    finally:
+        E.ServingEngine.__init__ = real
+    emit("pool_release", ok=True, items=len(items), runs=rows)
+
+
 def phase_serve_planted(torch):
     """The concurrent serving launcher in-process on the card:
     repro_torch.launch.serve.main over 200 planted items, 48 requests at
@@ -3448,10 +3573,12 @@ def phase_sharded_llama8b(torch, kept, params):
 DEEPSEEK_ITEMS, DEEPSEEK_LEN, DEEPSEEK_CPU_LAYERS = 32, 512, 12
 
 
-def _deepseek_session(cfg, params, root, device=None):
-    """Session(cfg, engine=eng) with the model registered as "lg": rungs
-    0.8 / 0.5 / gold (MLA keeps latents: no int8 rung), 4 items per
-    prefill chunk."""
+def _lg_session(name, cfg, params, root, device=None, prefill_batch=4,
+                lg_ratios=(0.8, 0.5), lg_int8=()):
+    """Session(cfg, engine=eng) with one model registered as "lg": the
+    rungs `lg_ratios` (and int8 `lg_int8`) before gold, `prefill_batch`
+    items per prefill chunk. deepseek: 0.8 / 0.5 / gold (MLA keeps
+    latents: no int8 rung), 4 items per chunk."""
     from repro_torch.api import EngineSpec, Session, SessionConfig
     from repro_torch.cache.store import CacheStore
     from repro_torch.core.optimizer import PlannerConfig
@@ -3459,9 +3586,10 @@ def _deepseek_session(cfg, params, root, device=None):
     device = device or DEV
     eng = ServingEngine(CacheStore(root), device=device)
     eng.register_model("lg", cfg, params)
-    spec = EngineSpec("deepseek", models=("lg",), sm_ratios=(),
-                      lg_ratios=(0.8, 0.5), include_cheap=False,
-                      prefill_batch=4, device=device)
+    spec = EngineSpec(name, models=("lg",), sm_ratios=(),
+                      lg_ratios=lg_ratios, lg_int8=lg_int8,
+                      include_cheap=False, prefill_batch=prefill_batch,
+                      device=device)
     return eng, Session(SessionConfig(
         engines=(spec,), planner=PlannerConfig(steps=200, restarts=3)),
         engine=eng)
@@ -3495,18 +3623,16 @@ def phase_session_deepseek(torch):
     on the CPU than on the card, so that comparison would read rounding,
     not the port.)"""
     import dataclasses
-    from repro_torch.api import EngineSpec, Session, SessionConfig
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic as syn
     from repro_torch.models import init_params
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.cache.store import CacheStore
-    from repro_torch.core.optimizer import PlannerConfig
 
     cfg = get_config("deepseek-v2-lite-16b")
     m = cfg.mla
-    # earlier phases' engines may sit in reference cycles: free them, so
-    # the peak below is this phase's own
+    # what earlier phases still hold, before and after the collector runs
+    # (nothing should wait for it since the pool's cycle was repaired),
+    # so that the peak below is this phase's own
+    held_pre_gb = torch.cuda.memory_allocated() / 1e9
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -3519,7 +3645,7 @@ def phase_session_deepseek(torch):
     ds = syn.make_dataset("deepseek-session", DEEPSEEK_ITEMS,
                           seq_len=DEEPSEEK_LEN, seed=8)
     root = os.path.join(WORK, "session-deepseek")
-    eng, sess = _deepseek_session(cfg, params, root)
+    eng, sess = _lg_session("deepseek", cfg, params, root)
     torch.cuda.reset_peak_memory_stats()
     report, result, metrics, counts, times, _ = _drive_session(
         torch, sess, [ds.items], _frame(sess, ds.items))
@@ -3527,7 +3653,8 @@ def phase_session_deepseek(torch):
     emit("session_explain", text=str(report))
     _check_deepseek("session_deepseek", counts, result, metrics, eng,
                     len(ds.items))
-    full = dict(init_s=init_s, weights_gb=weights_gb, held_before_gb=held_gb,
+    full = dict(init_s=init_s, weights_gb=weights_gb,
+                held_before_collect_gb=held_pre_gb, held_before_gb=held_gb,
                 **times,
                 planning_time_s=report.planning_time_s,
                 stages=[s.op_name for s in report.stages],
@@ -3549,7 +3676,7 @@ def phase_session_deepseek(torch):
     params = init_params(cut, torch.Generator(device=DEV).manual_seed(0),
                          device=DEV)
     root = os.path.join(WORK, "session-deepseek-cut")
-    eng, sess = _deepseek_session(cut, params, root)
+    eng, sess = _lg_session("deepseek", cut, params, root)
     frame = _frame(sess, ds.items)
     _, cres, cmetrics, ccounts, ctimes, _ = _drive_session(
         torch, sess, [ds.items], frame)
@@ -3560,41 +3687,50 @@ def phase_session_deepseek(torch):
              "hand": _quantile_plan(sess, query, ds.items,
                                     [("lg-kv80", 0.2, 0.8),
                                      ("lg-kv50", 0.25, 0.75)], "lg-kv50")}
-    cpu_eng = ServingEngine(CacheStore(root), device="cpu")
-    cpu_eng.register_model("lg", cut, {k: (v.cpu() if not isinstance(v, dict)
-                                           else _tree_cpu(v))
-                                       for k, v in params.items()})
-    cpu_sess = Session(SessionConfig(engines=(EngineSpec(
-        "deepseek", models=("lg",), sm_ratios=(), lg_ratios=(0.8, 0.5),
-        include_cheap=False, prefill_batch=4, device="cpu"),),
-        planner=PlannerConfig(steps=200, restarts=3)), engine=cpu_eng)
-    compared = {}
-    for name, plan in plans.items():
-        eng.evict()
-        cpu_eng.evict()
-        card = sess.run(plan, query, ds.items)
-        t0 = time.perf_counter()
-        cpu = cpu_sess.run(plan, query, ds.items)
-        cpu_s = time.perf_counter() - t0
-        cpu_same, all_same, n_near = _linear_card_vs_cpu(
-            "session_deepseek", sess, plan, query, ds.items, card, cpu)
-        compared[name] = dict(
-            stages=[s.op_name for s in plan.stages], cpu_run_s=cpu_s,
-            cpu_equal_outside_margin=cpu_same,
-            cpu_equal_everywhere=all_same, n_near_margin=n_near,
-            cpu_ints_equal=_ints(card) == _ints(cpu),
-            accepted=int(card.accepted.sum()))
+    compared = _card_vs_cpu("session_deepseek", sess, eng, cut, params, root,
+                            plans, query, ds.items)
     emit("session_deepseek", ok=True, items=len(ds.items),
          item_tokens=DEEPSEEK_LEN, **full, launches=counts,
          cut=dict(n_layers=DEEPSEEK_CPU_LAYERS, dtype="float32",
                   plan_s=ctimes["plan_s"], build_s=ctimes["build_s"],
                   margin=MARGIN, plans=compared, launches=ccounts))
     sess.close()
-    cpu_sess.close()
     shutil.rmtree(root, ignore_errors=True)
-    del sess, cpu_sess, eng, cpu_eng, params
+    del sess, eng, params
     torch.cuda.empty_cache()
     return counts
+
+
+def _card_vs_cpu(phase, sess, eng, cut, params, root, plans, query, items,
+                 **ladder):
+    """Each plan run on the card (`sess` over `eng`) and again by the
+    port on the CPU, over the card's store (`root`), with the cut's
+    weights copied to the host (`ladder`: the Session's lg rungs):
+    decisions equal outside MARGIN of every threshold, integer StageStats
+    equal where every decision is (`_linear_card_vs_cpu`)."""
+    spec = sess.engine_specs[0]
+    cpu_eng, cpu_sess = _lg_session(spec.name, cut, _tree_cpu(params), root,
+                                    device="cpu",
+                                    prefill_batch=spec.prefill_batch,
+                                    **ladder)
+    compared = {}
+    for name, plan in plans.items():
+        eng.evict()
+        cpu_eng.evict()
+        card = sess.run(plan, query, items)
+        t0 = time.perf_counter()
+        cpu = cpu_sess.run(plan, query, items)
+        cpu_s = time.perf_counter() - t0
+        cpu_same, all_same, n_near = _linear_card_vs_cpu(
+            phase, sess, plan, query, items, card, cpu)
+        compared[name] = dict(
+            stages=[s.op_name for s in plan.stages], cpu_run_s=cpu_s,
+            cpu_equal_outside_margin=cpu_same,
+            cpu_equal_everywhere=all_same, n_near_margin=n_near,
+            cpu_ints_equal=_ints(card) == _ints(cpu),
+            accepted=int(card.accepted.sum()))
+    cpu_sess.close()
+    return compared
 
 
 def _tree_cpu(tree):
@@ -3603,12 +3739,308 @@ def _tree_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
+# the SSM families at full width: hymba-1.5b (GQA heads beside Mamba heads)
+# and rwkv6-1.6b (chunked WKV) through a Session
+# ---------------------------------------------------------------------------
+
+HYMBA_ITEMS, HYMBA_LEN, HYMBA_CUT_LAYERS = 16, 1536, 4
+RWKV_ITEMS, RWKV_LEN, RWKV_CUT_LAYERS = 16, 512, 4
+HYMBA_LADDER = dict(lg_ratios=(0.8, 0.5), lg_int8=(0.5,))
+
+
+def _mamba_ms_per_step(torch, params, cfg, B, S):
+    """Device ms per token of one layer's Mamba prefill scan
+    (`mamba_mix_full` over (B, S, d), plain torch, a Python loop of S
+    steps), CUDA events around the whole call, divided by S."""
+    from repro_torch.models import layers as L
+    p = {k: v[0] for k, v in params["layers"]["attn"]["ssm"].items()}
+    x = torch.randn((B, S, cfg.d_model), device=DEV).to(params["embed"].dtype)
+    L.mamba_mix_full(p, x[:, :8], cfg)                 # warm-up
+    s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    s_.record()
+    L.mamba_mix_full(p, x, cfg)
+    e_.record()
+    torch.cuda.synchronize()
+    return {"device_ms_per_step": s_.elapsed_time(e_) / S,
+            "host_ms_per_step": (time.perf_counter() - t0) * 1e3 / S,
+            "B": B, "S": S, "steps_per_chunk": S * cfg.n_layers}
+
+
+def _ssm_invariance(phase, eng, items, rungs):
+    """flush_invariance per rung (label, ratio, quant): an item alone
+    against flushes of 2, 4, ... up to the profile's batch, the engine's
+    pinned rows; fails unless every size is bit-equal."""
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serving.engine import flush_invariance
+    ids = [it.item_id for it in items]
+    rows = []
+    for label, ratio, quant in rungs:
+        got = flush_invariance(
+            eng, "lg", ratio, ids[0], ids[1:],
+            filter_args=([syn.filter_query_token(1)], syn.TOK_YES,
+                         syn.TOK_NO),
+            map_args=([syn.map_query_token(2)],
+                      [syn.value_token(v) for v in range(8)]),
+            quant=quant)
+        rows.append({"rung": label, "pinned": {str(n): ok
+                                               for n, ok in got.items()}})
+        if not all(got.values()):
+            die(phase, f"{label}: an item's flush output depends on its "
+                       f"batch: {got}")
+    emit("flush_invariance", ok=True, path=phase, rungs=rows,
+         pinned_rows=eng.max_batch)
+    return rows
+
+
+def _check_hymba(phase, counts, result, metrics, eng, n_items):
+    """The hymba path's kernels: C once per prefill chunk, D (tensor-core
+    body for bf16) and B in every layer; never A or the int8 bodies
+    (hymba decodes token by token and dequantises its int8 rung to
+    bfloat16 before the mixer)."""
+    _check_chunks(phase, counts, eng)
+    for name in ("decode_attention", "prefill_attention"):
+        if counts[name] <= 0:
+            die(phase, f"the hymba path launched no {name}: {counts}")
+    for name in ("decode_query_attention", "decode_query_attention_int8",
+                 "decode_attention_int8"):
+        if counts[name]:
+            die(phase, f"the hymba path launched {name}: {counts}")
+    if result.accepted.shape != (n_items,):
+        die(phase, "result has the wrong shape")
+    # random weights may give gold no positive: then recall and precision
+    # hold vacuously, and the result must accept nothing either
+    if (metrics["tp"] + metrics["fn"] and metrics["recall"] < TARGET) \
+            or (metrics["tp"] + metrics["fp"]
+                and metrics["precision"] < TARGET):
+        die(phase, f"guarantees missed against gold: {metrics}")
+
+
+def phase_session_hymba(torch):
+    """hymba-1.5b at full width and depth (32 layers, d_model 1600, 25 q /
+    5 KV heads of 64, window 1024 with global layers 0 / 15 / 31, Mamba
+    heads d_state 16, d_conv 4, expand 2, vocab 32001; bfloat16, random
+    weights from seed 0) through a Session over 16 items of 1536 tokens
+    (longer than the window, so the windows bind in D and B), rungs 0.8 /
+    0.5 / int8 0.5 / gold, all 16 items in one prefill chunk: build by
+    step, the Mamba scan's ms per step, plan (profiling, optimizer),
+    execute, peak memory, the launches of B, C and each body of D; every
+    rung bit-equal across flush sizes. Then the same world cut to 4
+    layers (global layer 0 and the published window) in float32, planned
+    and run on the card, and its plan and a hand cascade (0.8, int8 0.5
+    before gold) run again by the port on the CPU over the card's store:
+    decisions equal outside MARGIN of every threshold, integer
+    StageStats equal where every decision is."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import init_params
+
+    cfg = get_config("hymba-1.5b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ds = syn.make_dataset("hymba-session", HYMBA_ITEMS, seq_len=HYMBA_LEN,
+                          seed=9)
+    root = os.path.join(WORK, "session-hymba")
+    eng, sess = _lg_session("hymba", cfg, params, root,
+                            prefill_batch=HYMBA_ITEMS, **HYMBA_LADDER)
+    torch.cuda.reset_peak_memory_stats()
+    report, result, metrics, counts, times, _ = _drive_session(
+        torch, sess, [ds.items], _frame(sess, ds.items))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("session_explain", text=str(report))
+    _check_hymba("session_hymba", counts, result, metrics, eng,
+                 len(ds.items))
+    if counts["prefill_attention_by_body"]["fma"]:
+        die("session_hymba", f"bf16 hymba ran D's FMA body: {counts}")
+    scan = _mamba_ms_per_step(torch, params, cfg, HYMBA_ITEMS, HYMBA_LEN)
+    inv = _ssm_invariance("session_hymba", eng, ds.items,
+                          [("hymba kv80 bfloat16", 0.8, False),
+                           ("hymba kv50 bfloat16", 0.5, False),
+                           ("hymba kv50 int8", 0.5, True),
+                           ("hymba gold bfloat16", 0.0, False)])
+    full = dict(init_s=init_s, weights_gb=_weights_bytes(params) / 1e9,
+                held_before_gb=held_gb,
+                **times, planning_time_s=report.planning_time_s,
+                stages=[s.op_name for s in report.stages],
+                feasible=report.feasible, metrics=metrics,
+                prefill_chunks=eng.prefill_chunks,
+                build_steps_s=dict(eng.build_seconds), peak_mem_gb=peak_gb,
+                attn_dispatches=eng.attn_dispatches, mamba_scan=scan,
+                flush_invariance=inv,
+                launches_b=counts["decode_attention"],
+                launches_c=counts["expected_attention_scores"],
+                launches_d=counts["prefill_attention_by_body"],
+                shapes=dict(KV=cfg.n_kv_heads,
+                            G=cfg.n_heads // cfg.n_kv_heads, d=cfg.d_head,
+                            window=cfg.window, global_layers=list(
+                                cfg.global_layers)))
+    sess.close()
+    shutil.rmtree(root, ignore_errors=True)
+    del sess, eng, params, result
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=HYMBA_CUT_LAYERS,
+                              global_layers=(0,), dtype="float32")
+    params = init_params(cut, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    root = os.path.join(WORK, "session-hymba-cut")
+    eng, sess = _lg_session("hymba", cut, params, root,
+                            prefill_batch=HYMBA_ITEMS, **HYMBA_LADDER)
+    frame = _frame(sess, ds.items)
+    _, cres, cmetrics, ccounts, ctimes, _ = _drive_session(
+        torch, sess, [ds.items], frame)
+    _check_hymba("session_hymba", ccounts, cres, cmetrics, eng,
+                 len(ds.items))
+    query = frame.to_query()
+    plans = {"session": cres.raw.plan,
+             "hand": _quantile_plan(sess, query, ds.items,
+                                    [("lg-kv80", 0.2, 0.8),
+                                     ("lg-kv50i8", 0.25, 0.75)], "lg-kv50")}
+    compared = _card_vs_cpu("session_hymba", sess, eng, cut, params, root,
+                            plans, query, ds.items, **HYMBA_LADDER)
+    emit("session_hymba", ok=True, items=len(ds.items),
+         item_tokens=HYMBA_LEN, **full, launches=counts,
+         cut=dict(n_layers=HYMBA_CUT_LAYERS, global_layers=[0],
+                  dtype="float32", plan_s=ctimes["plan_s"],
+                  build_s=ctimes["build_s"], margin=MARGIN, plans=compared,
+                  launches=ccounts),
+         note="items cut to 16 (one prefill chunk); widths, depth and "
+              "window as published")
+    sess.close()
+    shutil.rmtree(root, ignore_errors=True)
+    del sess, eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _rwkv_logits_vs_cpu(torch, cfg, params, tokens):
+    """The prefill's last logits and two decode steps' logits, on the
+    card and by the port on the CPU on the same weights and tokens (the
+    last 2 tokens of `tokens` decode): max abs error over the largest
+    magnitude of each."""
+    from repro_torch.models import decode_step, prefill
+    out = {}
+    for dev, p in ((DEV, params), ("cpu", _tree_cpu(params))):
+        toks = tokens.to(dev)
+        last, cache = prefill(p, cfg, tokens=toks[:, :-2])
+        steps = []
+        for t in (2, 1):
+            logits, cache = decode_step(p, cfg, cache, rows=8,
+                                        tokens=toks[:, -t:][:, :1])
+            steps.append(logits)
+        out[dev] = [last.float().cpu()] + [x.float().cpu() for x in steps]
+    errs = {}
+    for name, a, b in zip(("prefill", "decode1", "decode2"), out[DEV],
+                          out["cpu"]):
+        errs[name] = float((a - b).abs().max())
+        errs[name + "_scale"] = float(b.abs().max())
+    return errs
+
+
+def phase_session_rwkv6(torch):
+    """rwkv6-1.6b at full width and depth (24 layers, d_model 2048, 32 WKV
+    heads of 64, channel mix 7168, vocab 65536; bfloat16, random weights
+    from seed 0): the rung-less build over 16 items of 512 tokens (no
+    calibration, ratio 0 only: the states stored as they are), then a
+    Session over the ratio-0 profile and gold (the only candidate: no
+    rung); build, plan, execute, peak memory, and its one rung bit-equal
+    across flush sizes. No attention kernel is launched: rwkv6 has no
+    attention and no positional cache (plain torch, as the JAX package's
+    jnp). Then a float32 cut of 4
+    layers: the prefill's and two decode steps' logits on the card
+    against the port's CPU path on the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    emit("session_rwkv6_kernels", note="rwkv6 launches no attention "
+         "kernel (A, B, C, D): no attention and no positional cache; its "
+         "mixers are plain torch. Only the planner's kernel E may run")
+    cfg = get_config("rwkv6-1.6b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ds = syn.make_dataset("rwkv6-session", RWKV_ITEMS, seq_len=RWKV_LEN,
+                          seed=10)
+    root = os.path.join(WORK, "session-rwkv6")
+    eng, sess = _lg_session("rwkv6", cfg, params, root,
+                            prefill_batch=RWKV_ITEMS, lg_ratios=())
+    torch.cuda.reset_peak_memory_stats()
+    report, result, metrics, counts, times, _ = _drive_session(
+        torch, sess, [ds.items], _frame(sess, ds.items))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("session_explain", text=str(report))
+    launched = {k: counts[k] for k in KERNEL_META if counts[k]}
+    if launched or counts["prefill_attention"]:
+        die("session_rwkv6", f"rwkv6 launched an attention kernel: "
+                             f"{counts}")
+    if eng.models["lg"].stats is not None:
+        die("session_rwkv6", "rwkv6 was calibrated")
+    # its only candidate is gold: the result is gold's, item for item
+    if result.accepted.shape != (len(ds.items),) or metrics["fp"] \
+            or metrics["fn"]:
+        die("session_rwkv6", f"the gold-only plan differs from gold: "
+                             f"{metrics}")
+    inv = _ssm_invariance("session_rwkv6", eng, ds.items,
+                          [("rwkv6 ratio 0 bfloat16", 0.0, False)])
+    full = dict(init_s=init_s, weights_gb=_weights_bytes(params) / 1e9,
+                held_before_gb=held_gb,
+                **times, planning_time_s=report.planning_time_s,
+                stages=[s.op_name for s in report.stages],
+                candidates=report.candidates, metrics=metrics,
+                prefill_chunks=eng.prefill_chunks,
+                build_steps_s=dict(eng.build_seconds), peak_mem_gb=peak_gb,
+                attn_dispatches=eng.attn_dispatches, flush_invariance=inv)
+    sess.close()
+    shutil.rmtree(root, ignore_errors=True)
+    del sess, eng, params, result
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=RWKV_CUT_LAYERS, dtype="float32")
+    params = init_params(cut, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    toks = torch.tensor([it.tokens[:130] for it in ds.items[:4]])
+    ops.reset_launch_counts()
+    errs = _rwkv_logits_vs_cpu(torch, cut, params, toks)
+    for name in ("prefill", "decode1", "decode2"):
+        if not errs[name] <= 1e-4 * max(1.0, errs[name + "_scale"]):
+            die("session_rwkv6", f"float32 cut: card vs CPU {name} logits "
+                                 f"{errs}")
+    emit("session_rwkv6", ok=True, items=len(ds.items), item_tokens=RWKV_LEN,
+         **full, launches=counts,
+         cut=dict(n_layers=RWKV_CUT_LAYERS, dtype="float32",
+                  items=4, tokens=128, logits_vs_cpu=errs, tol="1e-4 x "
+                  "max(1, max |cpu|)"),
+         note="items cut to 16 (one prefill chunk); widths and depth as "
+              "published")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the GQA zoo configs at full width, cut in depth: D and A at new shapes
 # ---------------------------------------------------------------------------
 
-# (config, layers): 6 for gemma3 so that a global layer (every 6th) runs
+# (config, layers): 6 for gemma3 so that a global layer (every 6th) runs;
+# hymba cut to its global layer 0 and a windowed layer (G 5, window 1024)
 ZOO_GQA = (("granite-8b", 2), ("minitron-8b", 2), ("gemma3-27b", 6),
-           ("llava-next-34b", 2), ("musicgen-medium", 2), ("dbrx-132b", 2))
+           ("llava-next-34b", 2), ("musicgen-medium", 2), ("dbrx-132b", 2),
+           ("hymba-1.5b", 2))
 ZOO_LENGTHS = (1536, 1200)      # longer than gemma3's 1024 window
 ZOO_TOL = 0.05                  # x the plain version's max |value| (bf16)
 # a launch's output element against the plain version's: bf16 steps at
@@ -3628,14 +4060,17 @@ def _zoo_inputs(torch, cfg, gen, n, S):
 
 
 class _KernelCalls:
-    """Records each call of `ops.prefill_attention` and
-    `ops.decode_query_attention` made while it is active (its inputs and
-    output), so each launch on the model's path can be held against the
-    plain version on the same inputs."""
+    """Records each call of `ops.prefill_attention`,
+    `ops.decode_query_attention` and `ops.decode_attention` made while it
+    is active (its inputs and output), so each launch on the model's path
+    can be held against the plain version on the same inputs."""
+
+    NAMES = ("prefill_attention", "decode_query_attention",
+             "decode_attention")
 
     def __init__(self, ops):
         self.ops, self.calls = ops, []
-        self.real = (ops.prefill_attention, ops.decode_query_attention)
+        self.real = {n: getattr(ops, n) for n in self.NAMES}
 
         def rec(name, fn):
             def run(*a, **kw):
@@ -3643,13 +4078,12 @@ class _KernelCalls:
                 self.calls.append((name, a, kw, out))
                 return out
             return run
-        ops.prefill_attention = rec("prefill_attention", self.real[0])
-        ops.decode_query_attention = rec("decode_query_attention",
-                                         self.real[1])
+        for n, fn in self.real.items():
+            setattr(ops, n, rec(n, fn))
 
     def close(self):
-        self.ops.prefill_attention, self.ops.decode_query_attention = \
-            self.real
+        for n, fn in self.real.items():
+            setattr(self.ops, n, fn)
 
     def hold(self, phase, label):
         """Every recorded launch against the plain version on its inputs,
@@ -3667,8 +4101,7 @@ class _KernelCalls:
             window = min(int(kw.get("window", GLOBAL)), GLOBAL)
             kw = {k: v for k, v in kw.items()
                   if k not in ("backend", "k_scale", "v_scale", "window")}
-            plain = (ref.prefill_attention_ref if name == "prefill_attention"
-                     else ref.decode_query_attention_ref)
+            plain = getattr(ref, name + "_ref")
             q, k, v, *rest = a
             want = plain(q, k, v, *rest, window=window, **kw).float()
             spread = plain(q, k, v.abs(), *rest, window=window,
@@ -3730,7 +4163,8 @@ def phase_zoo_legs(torch):
     kernel route (D in every layer) held against the plain route (the
     blocked flash_attention), last logits and k / v caches; one fused
     decode flush of 2 query tokens (A in every layer) against the plain
-    decode; every launch of D and A also against its plain version on
+    decode (hymba, which has no fused decode: two decode steps, B in
+    every layer at each); every launch of D and A (B) also against its plain version on
     the same inputs, element by element (`_KernelCalls.hold`: two bf16
     steps plus 2^-10 of the attention over |v|; on gemma3's windowed
     layers a window one key tile short must fail it), which alone holds
@@ -3746,8 +4180,22 @@ def phase_zoo_legs(torch):
                                                score_chunk)
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import decode_multi, init_params, prefill
+    from repro_torch.models import (decode_multi, decode_step, init_params,
+                                    prefill, supports_fused_decode)
     gen = torch.Generator(device=DEV).manual_seed(11)
+
+    def decode(params, cfg, cache, kernels, q):
+        """The 2 query tokens' last logits: one fused flush, or (no fused
+        decode) two decode steps; the dense layers at 8 pinned rows."""
+        cache = {k: v.clone() for k, v in cache.items()}
+        if supports_fused_decode(cfg):
+            return decode_multi(params, cfg, cache, kernels=kernels, rows=8,
+                                **q)[0]
+        for t in range(2):
+            logits, cache = decode_step(
+                params, cfg, cache, kernels=kernels, rows=8,
+                **{k: v[:, t:t + 1] for k, v in q.items()})
+        return logits
     S = max(ZOO_LENGTHS)
     lengths = torch.tensor(ZOO_LENGTHS, dtype=torch.int32, device=DEV)
     total, rows = None, []
@@ -3766,6 +4214,8 @@ def phase_zoo_legs(torch):
     for name, depth in ZOO_GQA:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(name), n_layers=depth)
+        if cfg.global_layers:
+            cfg = dataclasses.replace(cfg, global_layers=(0,))
         params = init_params(cfg, gen, device=DEV)
         inputs = _zoo_inputs(torch, cfg, gen, len(ZOO_LENGTHS), S)
         # an MoE router picks its experts from bf16 logits: a rounding
@@ -3786,17 +4236,13 @@ def phase_zoo_legs(torch):
                                       **inputs)
             q = _zoo_inputs(torch, cfg, gen, len(ZOO_LENGTHS), 2)
             ops.reset_launch_counts()
-            dec = decode_multi(params, cfg, {k: v.clone()
-                                             for k, v in cache.items()},
-                               kernels="cuda", rows=8, **q)[0]
+            dec = decode(params, cfg, cache, "cuda", q)
             torch.cuda.synchronize()
             dcounts = ops.launch_counts()
             errs.update(rec.hold("zoo_legs", f"{name} decode"))
         finally:
             rec.close()
-        dec_p = decode_multi(params, cfg, {k: v.clone()
-                                           for k, v in cache_p.items()},
-                             kernels="ref", rows=8, **q)[0]
+        dec_p = decode(params, cfg, cache_p, "ref", q)
         for label, got, want in (("prefill_logits", last, last_p),
                                  ("cache_k", cache["k"], cache_p["k"]),
                                  ("cache_v", cache["v"], cache_p["v"]),
@@ -3813,15 +4259,17 @@ def phase_zoo_legs(torch):
         ccounts = ops.launch_counts()
         for c in (counts, dcounts, ccounts):
             total = _add_counts(total, c)
+        fused = supports_fused_decode(cfg)
+        dname = "decode_query_attention" if fused else "decode_attention"
         if cfg.window and not {"prefill_attention_fault",
-                               "decode_query_attention_fault"} <= set(errs):
+                               dname + "_fault"} <= set(errs):
             die("zoo_legs", f"{name}: no windowed launch to plant the "
                             f"fault in")
         if counts["prefill_attention_by_body"]["tc"] != depth \
-                or dcounts["decode_query_attention"] != depth:
-            die("zoo_legs", f"{name}: D {counts['prefill_attention']} / A "
-                            f"{dcounts['decode_query_attention']} launches "
-                            f"for {depth} layers")
+                or dcounts[dname] != depth * (1 if fused else 2):
+            die("zoo_legs", f"{name}: D {counts['prefill_attention']} / "
+                            f"{dname} {dcounts[dname]} launches for {depth} "
+                            f"layers")
         KV = cfg.n_kv_heads
         rows.append(dict(config=name, layers=depth, d_model=cfg.d_model,
                          KV=KV, G=cfg.n_heads // KV, dk=cfg.d_head,
@@ -3896,7 +4344,8 @@ PREFILL_BODIES = {
 
 
 # bfloat16 paths besides the 8B ones: D's tensor-core body only
-BF16_PATHS = ("session_deepseek", "zoo_legs")
+BF16_PATHS = ("session_deepseek", "session_hymba", "session_rwkv6",
+              "zoo_legs")
 
 
 def _check_prefill_bodies(paths):
@@ -3914,24 +4363,34 @@ def _check_prefill_bodies(paths):
             die("kernels", f"planted path {path} launched D's tensor-core "
                            f"body: {by_body}")
     for path in ("llama8b", "session_llama8b", "session_join_llama8b",
-                 "zoo_legs"):
+                 "session_hymba", "zoo_legs"):
         if paths[path]["prefill_attention_by_body"]["tc"] <= 0:
             die("kernels", f"{path} launched no tensor-core body of D")
 
 
+def _timing(row):
+    return {"ms": row["kernel_ms"], "ms_read_flush": row.get("kernel_ms_read"),
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
+    """One kernel's entry of the kernels line: its row at the main path's
+    shape, and (B, C, D's tensor-core body) its row at the hymba
+    Session's shape under "hymba"."""
     row = [r for r in rows if r.get("main_path_shape")][0]
     if sum(launches_by_path.values()) <= 0:
         die("kernels", f"{name} was launched on no Session path")
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": sum(launches_by_path.values()),
-            "launches_by_path": launches_by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": row["kernel_ms"], "ms_read_flush": row.get("kernel_ms_read"),
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
+             "launches": sum(launches_by_path.values()),
+             "launches_by_path": launches_by_path,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             **_timing(row)}
+    hymba = [r for r in rows if r.get("hymba_path_shape")]
+    if hymba:
+        entry["hymba"] = {"shape": hymba[0]["shape"], **_timing(hymba[0])}
+    return entry
 
 
 def main() -> int:
@@ -3985,7 +4444,10 @@ def main() -> int:
         del planted, llama, params
         torch.cuda.empty_cache()
         paths["serve_planted"] = phase_serve_planted(torch)
+        phase_pool_release(torch)
         paths["session_deepseek"] = phase_session_deepseek(torch)
+        paths["session_hymba"] = phase_session_hymba(torch)
+        paths["session_rwkv6"] = phase_session_rwkv6(torch)
         paths["zoo_legs"] = phase_zoo_legs(torch)
         _check_prefill_bodies(paths)
         rows.update(phase_planner(torch, problems))

@@ -10,9 +10,11 @@ The port of `repro.cache.compression`. Offline pipeline:
   3. keep the top (1 - ratio) positions per item per layer, ties broken
      toward the lower position as `jax.lax.top_k` does.
 
-GQA caches compress k/v; MLA caches compress latent rows ([c_kv ; k_rope]
+GQA and hymba caches compress k/v (hymba's conv / ssm states are copied
+through as they are); MLA caches compress latent rows ([c_kv ; k_rope]
 scored as one KV head of width r + rope against the absorbed query's
-statistics, as the JAX package does).
+statistics, as the JAX package does). rwkv6 keeps no positional cache:
+its engine stores the states whole, at ratio 0 only.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as KOPS
-from repro_torch.models.transformer import _trunk, cache_keys
+from repro_torch.models.transformer import SEQ_KEYS, _trunk, cache_keys
 
 
 class QueryStats(NamedTuple):
@@ -61,11 +63,15 @@ def calibrate_query_stats(params, cfg: ModelConfig, tokens=None,
     t0 = int(S * (1.0 - tail_frac))
     h = h[:, :, t0:, :]
     ap = params["layers"]["attn"]
-    if cfg.attn_kind == "gqa":
-        q = torch.einsum("lbsd,lde->lbse", h, ap["wq"])   # (L, d, H*dh)
+    if cfg.attn_kind in ("gqa", "hymba"):
+        wq = ap["attn"]["wq"] if cfg.attn_kind == "hymba" else ap["wq"]
+        q = torch.einsum("lbsd,lde->lbse", h, wq)         # (L, d, H*dh)
         KV, G, dk = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
             cfg.d_head
         return _gaussian(q.reshape(Ln, -1, KV, G, dk))
+    if cfg.attn_kind != "mla":
+        raise ValueError(f"no positional cache to compress for "
+                         f"{cfg.attn_kind}")
     m = cfg.mla
     if m.q_lora_rank:
         q = torch.einsum("lbse,lef->lbsf",
@@ -138,29 +144,34 @@ def compress_item_cache(cfg: ModelConfig, cache: Dict[str, Any],
     """Compress one item's cache (batch dim 1) to keep (1-ratio) tokens.
 
     Returns ({"k", "v": (L, S', KV, dh)} or MLA's {"c_kv", "k_rope":
-    (L, S', .)}, CPU tensors; new_length). Kept positions stay in order.
-    `scores` (from score_positions) may be passed in: they do not depend
-    on the ratio, so one item's scores serve every rung of its ladder."""
-    keys = cache_keys(cfg)
-    if ratio <= 0.0:
-        return {key: cache[key][:, 0, :length].cpu()
-                for key in keys}, length
+    (L, S', .)}, with hymba's states {"conv", "ssm"} copied through; or,
+    for rwkv6 (no positional cache) at ratio 0, its states; CPU tensors;
+    new_length). Kept positions stay in order. `scores` (from
+    score_positions) may be passed in: they do not depend on the ratio,
+    so one item's scores serve every rung of its ladder."""
+    seq = [k for k in cache_keys(cfg) if k in SEQ_KEYS]
+    states = {key: cache[key][:, 0].cpu() for key in cache_keys(cfg)
+              if key not in SEQ_KEYS}
+    if ratio <= 0.0 or not seq:
+        return {**{key: cache[key][:, 0, :length].cpu() for key in seq},
+                **states}, length
     keep = max(4, int(round((1.0 - ratio) * length)))
     if scores is None:
         scores = score_positions(cfg, cache, stats, length, kernels)
     idx = top_k_positions(scores, keep)                   # (L, keep)
     out = {}
-    for key in keys:
+    for key in seq:
         arr = cache[key][:, 0]                            # (L, S, ...)
         gi = idx.reshape(idx.shape + (1,) * (arr.dim() - 2)).expand(
             idx.shape + arr.shape[2:])
         out[key] = torch.gather(arr, 1, gi).cpu()
-    return out, keep
+    return {**out, **states}, keep
 
 
 def quantize_kv(arrays: Dict[str, Any]) -> Dict[str, Any]:
     """int8 rung of the ladder: int8 k/v tensors plus per-(layer, token,
-    head) absmax scales (L, S', KV) float32, as in the JAX package."""
+    head) absmax scales (L, S', KV) float32, as in the JAX package; other
+    entries (hymba's conv / ssm states) pass through as they are."""
     out = dict(arrays)
     for key in ("k", "v"):
         if key not in arrays:

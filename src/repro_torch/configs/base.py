@@ -49,7 +49,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
 
-    # token-mixer kind: gqa | mla | hymba | rwkv6 (the port runs gqa, mla)
+    # token-mixer kind: gqa | mla | hymba | rwkv6
     attn_kind: str = "gqa"
 
     # sliding-window / local:global structure.
@@ -152,7 +152,7 @@ class ModelConfig:
             per_layer += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_head_dim)
             per_layer += self.n_heads * m.v_head_dim * d
         elif self.attn_kind == "rwkv6":
-            per_layer += 6 * d * d + 2 * d * self.d_ff
+            per_layer += 6 * d * d + 2 * d * self.d_ff_channel_mix
         if self.is_moe:
             e = self.moe
             per_layer += d * e.n_experts                                  # router
@@ -160,3 +160,11 @@ class ModelConfig:
         elif self.attn_kind != "rwkv6":
             per_layer += 3 * d * self.d_ff                                # swiglu
         return n + L * per_layer
+
+    @property
+    def d_ff_channel_mix(self) -> int:
+        return self.d_ff
+
+    @property
+    def rwkv_n_heads(self) -> int:
+        return self.d_model // self.rwkv_head_size

@@ -131,6 +131,11 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,
         if quant:
             return _da.decode_attention_int8(q, k_cache, v_cache, k_scale,
                                              v_scale, lengths, window=window)
+        if q.dtype == torch.float32 and k_cache.dtype != q.dtype:
+            # a float32 hymba's int8 rung dequantises K/V to bfloat16; the
+            # plain version computes over them in float32, so widen them
+            # (exactly) to q's type for the float32 body
+            k_cache, v_cache = k_cache.float(), v_cache.float()
         return _da.decode_attention(q, k_cache, v_cache, lengths,
                                     window=window)
     window = min(int(window), GLOBAL)

@@ -12,11 +12,13 @@ conventions:
 
 GQA decode attention, and GQA full-sequence attention on the card, go
 through `kernels.ops`, which launches the hand-written CUDA kernels for
-CUDA tensors. MLA attention and the MoE feed-forward are plain torch ops,
-as they are plain jnp in the JAX package (no Pallas kernel there); MLA's
-full-sequence attention is the blocked `flash_attention`, its decode the
-absorbed MQA over the latent cache in float32. The SSM mixers (Mamba,
-Hymba, RWKV6) wait for a later slice (ROADMAP.md).
+CUDA tensors; hymba's attention heads are GQA and take the same route.
+MLA attention, the MoE feed-forward and the SSM mixers (Mamba, RWKV6)
+are plain torch ops, as they are plain jnp in the JAX package (no Pallas
+kernel there); MLA's full-sequence attention is the blocked
+`flash_attention`, its decode the absorbed MQA over the latent cache in
+float32. The Mamba scan runs token by token in float32 (the JAX
+package's `lax.scan`); RWKV6's full-sequence form is the chunked one.
 """
 from __future__ import annotations
 
@@ -415,3 +417,209 @@ def moe_mlp(p, x, cfg: ModelConfig, impl: str = "auto"):
     if e.n_shared_experts:
         y = y + swiglu_mlp(p["shared"], x_flat).reshape(B, S, d)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Mamba mixer (hymba's SSM heads): a depthwise causal conv, then a
+# sequential scan over time carrying (B, d_inner, d_state) in float32
+# ---------------------------------------------------------------------------
+
+def _depthwise_conv(hist, w, b):
+    """silu(sum_k hist[:, k:k+S] * w[:, k] + b): hist (B, S + K - 1, di),
+    w (di, K). The K products are summed in float32 and cast to hist's
+    dtype, as the JAX package's einsum accumulates."""
+    K = w.shape[1]
+    S = hist.shape[1] - K + 1
+    acc = sum(hist[:, k:k + S].float() * w[:, k].float() for k in range(K))
+    return silu(acc.to(hist.dtype) + b)
+
+
+def _mamba_inputs(p, x, cfg: ModelConfig, conv_state=None):
+    """The scan's inputs for x (B, S, d): (xi after the conv, z, dt, B_t,
+    C_t, the pre-conv xi). `conv_state` (B, K-1, di) holds the earlier
+    pre-conv inputs (None: zeros, the start of a sequence)."""
+    K = cfg.ssm.d_conv
+    xi, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    if conv_state is None:
+        conv_state = xi.new_zeros((x.shape[0], K - 1, xi.shape[-1]))
+    hist = torch.cat([conv_state, xi], dim=1)
+    xc = _depthwise_conv(hist, p["conv_w"], p["conv_b"])
+    dt = F.softplus((xc @ p["w_dt_a"]) @ p["w_dt_b"] + p["dt_bias"])
+    return xc, z, dt, xc @ p["w_B"], xc @ p["w_C"], hist
+
+
+def _mamba_out(p, y, xc, z):
+    """w_out((y + xc * D) * silu(z)) for the scan's float32 output y."""
+    y = y.to(xc.dtype) + xc * p["D"]
+    return (y * silu(z)) @ p["w_out"]
+
+
+def mamba_mix_full(p, x, cfg: ModelConfig):
+    """x: (B, S, d) -> (out (B, S, d), (conv_state (B, K-1, di), state
+    (B, di, ds) float32)). conv_state is the last K-1 pre-conv inputs of
+    the padded sequence and the state the one after all S steps, as in
+    the JAX package (right-padded items run over their pad positions)."""
+    K = cfg.ssm.d_conv
+    B, S, _ = x.shape
+    xc, z, dt, Bm, Cm, hist = _mamba_inputs(p, x, cfg)
+    A = -torch.exp(p["A_log"].float())                     # (di, ds)
+    dtf = dt.float()
+    dtx = dt * xc                                          # model dtype
+    Cf = Cm.float()
+    h = torch.zeros((B, xc.shape[-1], A.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t, :, None] * A)
+        dBx = (dtx[:, t, :, None] * Bm[:, t, None, :]).float()
+        h = h * dA + dBx
+        ys.append(torch.matmul(h, Cf[:, t, :, None])[..., 0])
+    y = torch.stack(ys, dim=1)                             # (B, S, di)
+    return _mamba_out(p, y, xc, z), (hist[:, S:S + K - 1], h)
+
+
+def mamba_mix_step(p, x, cfg: ModelConfig, conv_state, ssm_state):
+    """Decode step. x: (B, 1, d); conv_state (B, K-1, di); ssm_state
+    (B, di, ds) float32. Returns (out (B, 1, d), new conv_state, new
+    ssm_state)."""
+    xc, z, dt, Bt, Ct, hist = _mamba_inputs(p, x, cfg, conv_state)
+    A = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dt[:, 0, :, None].float() * A)
+    dBx = ((dt * xc)[:, 0, :, None] * Bt[:, 0, None, :]).float()
+    h = ssm_state * dA + dBx
+    y = torch.matmul(h, Ct[:, 0, :, None].float())[..., 0]
+    return _mamba_out(p, y[:, None], xc, z), hist[:, 1:], h
+
+
+# ---------------------------------------------------------------------------
+# Hymba layer: parallel attention heads + Mamba heads, the mean of their
+# RMS-normed outputs (arXiv:2411.13676)
+# ---------------------------------------------------------------------------
+
+def hymba_mix_full(p, x, cfg: ModelConfig, window, positions, *,
+                   kernels=None):
+    """Prefill path: (out, (k, v), (conv_state, ssm_state)). The attention
+    heads go through `gqa_attn_full` (the prefill kernel on the card)."""
+    attn_out, kv = gqa_attn_full(p["attn"], x, cfg, window, positions,
+                                 kernels=kernels)
+    ssm_out, states = mamba_mix_full(p["ssm"], x, cfg)
+    out = 0.5 * (rms_norm(attn_out, p["norm_attn"], cfg.norm_eps)
+                 + rms_norm(ssm_out, p["norm_ssm"], cfg.norm_eps))
+    return out, kv, states
+
+
+def hymba_mix_decode(p, x, cfg: ModelConfig, window, cache_k, cache_v,
+                     lengths, conv_state, ssm_state, *, kernels=None):
+    """Decode step: x (R, 1, d) with R >= B, the cache's batch (the
+    states carry R rows like x). The attention heads go through
+    `gqa_attn_decode` (the decode kernel on the card). Returns (out,
+    new conv_state, new ssm_state), R rows each."""
+    attn_out = gqa_attn_decode(p["attn"], x, cfg, window, cache_k, cache_v,
+                               lengths, kernels=kernels)
+    ssm_out, new_conv, new_ssm = mamba_mix_step(p["ssm"], x, cfg,
+                                                conv_state, ssm_state)
+    out = 0.5 * (rms_norm(attn_out, p["norm_attn"], cfg.norm_eps)
+                 + rms_norm(ssm_out, p["norm_ssm"], cfg.norm_eps))
+    return out, new_conv, new_ssm
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch): a linear recurrence with data-dependent decay. The
+# full-sequence path is the chunked-parallel (GLA-style) form, decode the
+# O(1) state update.
+# ---------------------------------------------------------------------------
+
+RWKV_CHUNK = 32
+_LOGW_MIN = -8.0 / RWKV_CHUNK   # per-step log-decay clamp for chunk stability
+
+
+def _rwkv_projections(p, x, x_prev):
+    """Token-shifted projections. x, x_prev: (B, S, d), x_prev shifted by
+    one token. Returns (r, k, v, g, logw float32)."""
+    sx = x_prev - x
+    r = (x + sx * p["mu_r"]) @ p["w_r"]
+    k = (x + sx * p["mu_k"]) @ p["w_k"]
+    v = (x + sx * p["mu_v"]) @ p["w_v"]
+    g = silu((x + sx * p["mu_g"]) @ p["w_g"])
+    xw = x + sx * p["mu_w"]
+    logw = -torch.exp(p["w0"] + torch.tanh(xw @ p["w_dec_a"])
+                      @ p["w_dec_b"]).float()
+    return r, k, v, g, torch.clamp(logw, _LOGW_MIN, -1e-6)
+
+
+def _token_shift(x):
+    """x shifted one token later along axis 1, zeros first."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def rwkv6_mix_full(p, x, cfg: ModelConfig):
+    """Chunked-parallel RWKV6 wkv over x (B, S, d), chunks of
+    `_divisor_block(S, RWKV_CHUNK)` tokens. Returns (out, (final wkv
+    state (B, H, hd, hd) float32, x[:, -1]))."""
+    B, S, d = x.shape
+    H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    C = _divisor_block(S, RWKV_CHUNK)
+    N = S // C
+    r, k, v, g, logw = _rwkv_projections(p, x, _token_shift(x))
+    u = p["u"].reshape(H, hd).float()
+
+    def heads(t):                       # (B, S, d) -> (B, N, C, H, hd)
+        return t.float().reshape(B, N, C, H, hd)
+
+    r_f, k_f, v_f, logw = heads(r), heads(k), heads(v), heads(logw)
+    cum = torch.cumsum(logw, dim=2)                    # inclusive, in-chunk
+    rq = r_f * torch.exp(cum - logw)
+    kq = k_f * torch.exp(-cum)
+    A = torch.einsum("bnchd,bnshd->bnhcs", rq, kq)     # (B, N, H, C, C)
+    A = A * torch.tril(torch.ones((C, C), device=x.device), -1)
+    intra = torch.einsum("bnhcs,bnshd->bnchd", A, v_f)
+    bonus = torch.einsum("bnchd,hd,bnchd->bnch", r_f, u, k_f)
+    intra = intra + bonus[..., None] * v_f
+    chunk_decay = torch.exp(cum[:, :, -1])             # (B, N, H, hd)
+    k_to_end = k_f * torch.exp(cum[:, :, -1:] - cum)
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    inter = []
+    for n in range(N):
+        inter.append(torch.einsum("bchd,bhdv->bchv", rq[:, n], state))
+        state = state * chunk_decay[:, n, ..., None] + torch.einsum(
+            "bchd,bchv->bhdv", k_to_end[:, n], v_f[:, n])
+    wkv = (intra + torch.stack(inter, dim=1)).reshape(B, S, H, hd)
+    wkv = _headwise_norm(wkv, p["ln_w"], p["ln_b"], cfg.norm_eps)
+    out = (wkv.reshape(B, S, d).to(x.dtype) * g) @ p["w_o"]
+    return out, (state, x[:, -1])
+
+
+def rwkv6_mix_step(p, x, cfg: ModelConfig, wkv_state, x_prev):
+    """Decode step. x: (B, 1, d); wkv_state (B, H, hd, hd) float32;
+    x_prev (B, d). Returns (out (B, 1, d), new state, x[:, 0])."""
+    B, _, d = x.shape
+    H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    r, k, v, g, logw = _rwkv_projections(p, x, x_prev[:, None, :])
+    r = r.reshape(B, H, hd).float()
+    k = k.reshape(B, H, hd).float()
+    v = v.reshape(B, H, hd).float()
+    w = torch.exp(logw.reshape(B, H, hd))
+    u = p["u"].reshape(H, hd).float()
+    kv = k[..., :, None] * v[..., None, :]             # (B, H, hd, hd)
+    out = torch.einsum("bhd,bhdv->bhv", r, wkv_state + u[..., None] * kv)
+    new_state = wkv_state * w[..., None] + kv
+    out = _headwise_norm(out.reshape(B, 1, H, hd), p["ln_w"], p["ln_b"],
+                         cfg.norm_eps)
+    out = (out.reshape(B, 1, d).to(x.dtype) * g) @ p["w_o"]
+    return out, new_state, x[:, 0]
+
+
+def _headwise_norm(x, w, b, eps):
+    """LayerNorm over the last axis (per head) of x (..., H, hd), in
+    float32; returned in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
+def rwkv_channel_mix(p, x, x_prev):
+    """RWKV channel mix: a squared-ReLU feed-forward with token shift."""
+    sx = x_prev - x
+    kk = torch.square(F.relu((x + sx * p["mu_k"]) @ p["w_k"]))
+    return torch.sigmoid((x + sx * p["mu_r"]) @ p["w_r"]) * (kk @ p["w_v"])

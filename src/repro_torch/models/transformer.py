@@ -1,11 +1,11 @@
 """Config-driven decoder LM in PyTorch: params, forward, prefill, decode.
 
-The port of `repro.models.transformer` for the families that keep an
-attention cache: dense and MoE GQA (granite, minitron, gemma3, llava,
-musicgen, dbrx, stretto-llama-8b) and MLA with MoE (deepseek-v2-lite) or
-dense (minicpm3). Parameters keep the JAX package's layout: a nested dict
-whose per-layer leaves are stacked along a leading layer axis L under the
-same key names, e.g. for GQA
+The port of `repro.models.transformer` for every registered family: dense
+and MoE GQA (granite, minitron, gemma3, llava, musicgen, dbrx,
+stretto-llama-8b), MLA with MoE (deepseek-v2-lite) or dense (minicpm3),
+hymba (GQA heads beside Mamba heads) and rwkv6. Parameters keep the JAX
+package's layout: a nested dict whose per-layer leaves are stacked along
+a leading layer axis L under the same key names, e.g. for GQA
 
     {"embed": (V, d), "final_norm": (d,), "head": (d, V),
      "layers": {"attn": {"wq", "wk", "wv", "wo"},
@@ -13,28 +13,31 @@ same key names, e.g. for GQA
                 "norm_attn": (L, d), "norm_mlp": (L, d)}}
 
 with MLA's attention leaves ("wq" or "wq_a" / "wq_b", "w_kv_a", "kv_norm",
-"w_kv_b", "wo") and MoE's feed-forward ("router", "experts": {"w_gate",
-"w_up", "w_down"} (L, E, ...), "shared") as `layer_template` lists them.
-Caches are {"k", "v": (L, B, S, KV, dh), "lengths": (B,)} for GQA (int8
-caches add "k_scale", "v_scale": (L, B, S, KV)) and {"c_kv": (L, B, S,
-r), "k_rope": (L, B, S, rope), "lengths"} for MLA. A Python loop over
-layers takes the place of the JAX layer scan; the per-layer window is a
-plain int.
+"w_kv_b", "wo"), MoE's feed-forward ("router", "experts": {"w_gate",
+"w_up", "w_down"} (L, E, ...), "shared"), hymba's {"attn": GQA's,
+"ssm": Mamba's, "norm_attn", "norm_ssm"} and rwkv6's time mix / channel
+mix as `layer_template` lists them. Caches are {"k", "v": (L, B, S, KV,
+dh), "lengths": (B,)} for GQA (int8 caches add "k_scale", "v_scale":
+(L, B, S, KV)), {"c_kv": (L, B, S, r), "k_rope": (L, B, S, rope),
+"lengths"} for MLA; hymba adds to GQA's the states "conv" (L, B, K-1, di)
+and "ssm" (L, B, di, ds) float32, and rwkv6 keeps only states: "wkv"
+(L, B, H, hd, hd) float32, "tm_prev" and "cm_prev" (L, B, d). A Python
+loop over layers takes the place of the JAX layer scan; the per-layer
+window is a plain int.
 
 Decode writes the new tokens' cache rows into the cache tensors in place,
 at positions cache["lengths"] and beyond. No earlier result reads those
 positions, and a later flush over the same tensors (the engine's
 device-resident cache, which lets one flush at a time decode over an
 entry) overwrites them with its own query before reading them, so
-results match the JAX package's functional update.
+results match the JAX package's functional update. The recurrent states
+are never written in place: the returned cache holds new state tensors.
 
 Pinned rows (`rows=` of the decode paths) pad the dense layers' inputs,
 never the MoE router's: the router sees exactly the cache's batch, as in
 the JAX package, because an MoE layer's capacity depends on its token
-count.
-
-Hymba and RWKV6 register as configs, but their mixers wait for a later
-slice: their templates raise NotImplementedError (ROADMAP.md).
+count. The SSM mixers' matmuls take the pinned rows too, with their
+states padded like the inputs.
 """
 from __future__ import annotations
 
@@ -51,15 +54,12 @@ from repro_torch.models import layers as L
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axes, parallel to shape
-    init: str = "normal"              # normal | zeros
+    init: str = "normal"              # normal | zeros | ones | alog
 
-
-def _check_ported(cfg: ModelConfig):
-    if cfg.attn_kind not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name!r} (attn_kind={cfg.attn_kind!r}) is registered, but "
-            f"the port runs its mixer in a later slice; see ROADMAP.md, "
-            f"queue 1")
+# sequence-indexed cache leaves; every other leaf but "lengths" is a state
+SEQ_KEYS = ("k", "v", "c_kv", "k_rope")
+# states kept in float32 whatever the model dtype
+F32_STATES = ("ssm", "wkv")
 
 
 def _attn_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -89,6 +89,54 @@ def _mla_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         (None, "heads"))
     t["wo"] = ParamSpec((H * m.v_head_dim, d), ("heads", "fsdp"))
     return t
+
+
+def _mamba_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, s = cfg.d_model, cfg.ssm
+    di = s.expand * d
+    rank = max(16, d // 32)
+    return {
+        "w_in": ParamSpec((d, 2 * di), ("fsdp", "ff")),
+        "conv_w": ParamSpec((di, s.d_conv), ("ff", None)),
+        "conv_b": ParamSpec((di,), ("ff",), "zeros"),
+        "w_dt_a": ParamSpec((di, rank), ("ff", None)),
+        "w_dt_b": ParamSpec((rank, di), (None, "ff")),
+        "dt_bias": ParamSpec((di,), ("ff",), "zeros"),
+        "w_B": ParamSpec((di, s.d_state), ("ff", None)),
+        "w_C": ParamSpec((di, s.d_state), ("ff", None)),
+        "A_log": ParamSpec((di, s.d_state), ("ff", None), "alog"),
+        "D": ParamSpec((di,), ("ff",), "ones"),
+        "w_out": ParamSpec((di, d), ("ff", "fsdp")),
+    }
+
+
+def _rwkv_template(cfg: ModelConfig) -> Dict[str, Any]:
+    """rwkv6's time mix ("attn") and channel mix ("mlp")."""
+    d, ff = cfg.d_model, cfg.d_ff_channel_mix
+    H, hd = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    dec_rank = 64
+    mix = {
+        **{f"mu_{n}": ParamSpec((d,), (None,), "zeros") for n in "rkvwg"},
+        "w_r": ParamSpec((d, d), ("fsdp", "heads")),
+        "w_k": ParamSpec((d, d), ("fsdp", "heads")),
+        "w_v": ParamSpec((d, d), ("fsdp", "heads")),
+        "w_g": ParamSpec((d, d), ("fsdp", "heads")),
+        "w_o": ParamSpec((d, d), ("heads", "fsdp")),
+        "w_dec_a": ParamSpec((d, dec_rank), ("fsdp", None)),
+        "w_dec_b": ParamSpec((dec_rank, d), (None, "heads"), "zeros"),
+        "w0": ParamSpec((d,), ("heads",), "ones"),
+        "u": ParamSpec((d,), ("heads",), "zeros"),
+        "ln_w": ParamSpec((H, hd), ("heads", None), "ones"),
+        "ln_b": ParamSpec((H, hd), ("heads", None), "zeros"),
+    }
+    cmix = {
+        "mu_k": ParamSpec((d,), (None,), "zeros"),
+        "mu_r": ParamSpec((d,), (None,), "zeros"),
+        "w_k": ParamSpec((d, ff), ("fsdp", "ff")),
+        "w_v": ParamSpec((ff, d), ("ff", "fsdp")),
+        "w_r": ParamSpec((d, d), ("fsdp", None)),
+    }
+    return {"attn": mix, "mlp": cmix}
 
 
 def _mlp_template(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -125,15 +173,27 @@ def _moe_template(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def layer_template(cfg: ModelConfig) -> Dict[str, Any]:
-    """One layer's ParamSpecs (the JAX template's gqa / mla branches)."""
-    _check_ported(cfg)
+    """One layer's ParamSpecs, as the JAX template lists them."""
     d = cfg.d_model
-    attn = _attn_template(cfg) if cfg.attn_kind == "gqa" \
-        else _mla_template(cfg)
-    mlp = _moe_template(cfg) if cfg.is_moe else _mlp_template(cfg)
-    return {"attn": attn, "mlp": mlp,
-            "norm_attn": ParamSpec((d,), (None,), "zeros"),
-            "norm_mlp": ParamSpec((d,), (None,), "zeros")}
+    if cfg.attn_kind == "rwkv6":
+        t = _rwkv_template(cfg)
+    else:
+        if cfg.attn_kind == "gqa":
+            attn = _attn_template(cfg)
+        elif cfg.attn_kind == "mla":
+            attn = _mla_template(cfg)
+        elif cfg.attn_kind == "hymba":
+            attn = {"attn": _attn_template(cfg),
+                    "ssm": _mamba_template(cfg),
+                    "norm_attn": ParamSpec((d,), (None,), "zeros"),
+                    "norm_ssm": ParamSpec((d,), (None,), "zeros")}
+        else:
+            raise ValueError(cfg.attn_kind)
+        mlp = _moe_template(cfg) if cfg.is_moe else _mlp_template(cfg)
+        t = {"attn": attn, "mlp": mlp}
+    t["norm_attn"] = ParamSpec((d,), (None,), "zeros")
+    t["norm_mlp"] = ParamSpec((d,), (None,), "zeros")
+    return t
 
 
 def _stack(tree, n: int):
@@ -163,18 +223,24 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def cache_axes(cfg: ModelConfig, quant: bool = False) -> Dict[str, Any]:
     """Logical axes of `init_cache`'s leaves."""
-    _check_ported(cfg)
     a: Dict[str, Any] = {"lengths": ("cache_batch",)}
-    if cfg.attn_kind == "gqa":
+    if cfg.attn_kind in ("gqa", "hymba"):
         kv = ("layers", "cache_batch", "cache_seq", "kv_heads", None)
         a["k"] = kv
         a["v"] = kv
         if quant:
             a["k_scale"] = kv[:-1]
             a["v_scale"] = kv[:-1]
-    else:
+    if cfg.attn_kind == "mla":
         a["c_kv"] = ("layers", "cache_batch", "cache_seq", None)
         a["k_rope"] = ("layers", "cache_batch", "cache_seq", None)
+    if cfg.attn_kind == "hymba":
+        a["conv"] = ("layers", "cache_batch", None, "ff")
+        a["ssm"] = ("layers", "cache_batch", "ff", None)
+    if cfg.attn_kind == "rwkv6":
+        a["wkv"] = ("layers", "cache_batch", "heads", None, None)
+        a["tm_prev"] = ("layers", "cache_batch", None)
+        a["cm_prev"] = ("layers", "cache_batch", None)
     return a
 
 
@@ -186,16 +252,25 @@ def _map_template(tmpl, fn, path=()):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=None) -> Dict[str, Any]:
-    """Random weights: normal x 0.02 (zeros for norm scales), drawn in
-    float32 from `generator` and cast to `dtype` (default cfg.dtype).
-    Stacked layer leaves are drawn one layer at a time to bound the
-    float32 scratch. The numbers differ from `jax.random`'s."""
+    """Random weights: normal x 0.02, drawn in float32 from `generator`
+    and cast to `dtype` (default cfg.dtype); zeros and ones where the
+    template says so, and Mamba's A_log = log(1 .. d_state) per row in
+    float32 whatever the dtype, as in the JAX package. Stacked layer
+    leaves are drawn one layer at a time to bound the float32 scratch.
+    The numbers differ from `jax.random`'s."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
 
     def make(path, spec):
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "alog":
+            ds = spec.shape[-1]
+            a = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                       device=dev))
+            return a.expand(spec.shape).contiguous()
         out = torch.empty(spec.shape, dtype=dtype, device=dev)
         rows = out if path[0] == "layers" else out[None]
         for r in rows:
@@ -218,7 +293,8 @@ def _to_torch(arr, device, dtype):
 def params_from_jax(cfg: ModelConfig, np_tree, device="cuda", dtype=None):
     """The JAX package's parameter pytree (numpy leaves, e.g. from
     `jax.tree.map(np.asarray, params)`) as the port's parameters, every
-    leaf of `model_template` (MLA's and MoE's included)."""
+    leaf of `model_template` (the nested hymba and rwkv6 trees included).
+    `dtype` casts every leaf but Mamba's float32 A_log."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype) if dtype is not None else None
 
@@ -226,7 +302,7 @@ def params_from_jax(cfg: ModelConfig, np_tree, device="cuda", dtype=None):
         node = np_tree
         for k in path:
             node = node[k]
-        t = _to_torch(node, dev, dtype)
+        t = _to_torch(node, dev, None if spec.init == "alog" else dtype)
         if tuple(t.shape) != tuple(spec.shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)} != "
                              f"{tuple(spec.shape)}")
@@ -284,16 +360,35 @@ def _mlp(p, h2, cfg: ModelConfig, B: Optional[int] = None):
     return L.pad_rows(L.moe_mlp(p["mlp"], h2[:B], cfg), R)
 
 
+def _mixer_full(p, h, cfg: ModelConfig, window: int, positions, kernels):
+    """One layer's token mixer over the full sequence: (out, its cache
+    leaves by name)."""
+    kind = cfg.attn_kind
+    if kind == "gqa":
+        out, (k, v) = L.gqa_attn_full(p["attn"], h, cfg, window, positions,
+                                      kernels=kernels)
+        return out, {"k": k, "v": v}
+    if kind == "mla":
+        out, (c_kv, k_rope) = L.mla_attn_full(p["attn"], h, cfg, window,
+                                              positions)
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
+    if kind == "hymba":
+        out, (k, v), (conv, ssm) = L.hymba_mix_full(
+            p["attn"], h, cfg, window, positions, kernels=kernels)
+        return out, {"k": k, "v": v, "conv": conv, "ssm": ssm}
+    out, (wkv, tm_prev) = L.rwkv6_mix_full(p["attn"], h, cfg)
+    return out, {"wkv": wkv, "tm_prev": tm_prev}
+
+
 def _trunk(params, cfg: ModelConfig, tokens=None, collect_cache: bool = False,
            collect_hidden: bool = False, kernels=None, embeds=None):
     """Every layer over the full sequence. Returns (final-normed x,
-    caches or None): the cache leaves ("k"/"v", or MLA's "c_kv"/"k_rope")
-    with collect_cache, "h" (the post-norm layer inputs) with
-    collect_hidden, each stacked (L, B, S, ...). `kernels` selects the GQA
-    attention route (kernels.ops backends): on the card under auto / cuda
-    every GQA layer launches the prefill kernel; MLA layers run the
-    blocked `flash_attention`, as the JAX package does."""
-    _check_ported(cfg)
+    caches or None): the `cache_keys` leaves with collect_cache, "h" (the
+    post-norm layer inputs) with collect_hidden, each stacked (L, B, ...).
+    `kernels` selects the GQA attention route (kernels.ops backends): on
+    the card under auto / cuda every GQA layer (hymba's attention heads
+    too) launches the prefill kernel; MLA layers run the blocked
+    `flash_attention`, as the JAX package does."""
     x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -304,21 +399,20 @@ def _trunk(params, cfg: ModelConfig, tokens=None, collect_cache: bool = False,
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        if cfg.attn_kind == "gqa":
-            attn_out, pair = L.gqa_attn_full(p["attn"], h, cfg,
-                                             int(windows[i]), positions,
-                                             kernels=kernels)
-        else:
-            attn_out, pair = L.mla_attn_full(p["attn"], h, cfg,
-                                             int(windows[i]), positions)
-        if collect_cache:
-            for n, t in zip(names, pair):
-                cols[n].append(t)
+        attn_out, leaves = _mixer_full(p, h, cfg, int(windows[i]), positions,
+                                       kernels)
         if collect_hidden:
             hs.append(h)          # post-norm layer input (EA calibration)
         x = x + attn_out
         h2 = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        x = x + _mlp(p, h2, cfg)
+        if cfg.attn_kind == "rwkv6":
+            x = x + L.rwkv_channel_mix(p["mlp"], h2, L._token_shift(h2))
+            leaves["cm_prev"] = h2[:, -1]
+        else:
+            x = x + _mlp(p, h2, cfg)
+        if collect_cache:
+            for n in names:
+                cols[n].append(leaves[n])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     caches = {n: torch.stack(c) for n, c in cols.items()} \
         if collect_cache else {}
@@ -327,9 +421,16 @@ def _trunk(params, cfg: ModelConfig, tokens=None, collect_cache: bool = False,
     return x, (caches or None)
 
 
-def cache_keys(cfg: ModelConfig) -> Tuple[str, str]:
-    """The two sequence-indexed cache leaves of a model."""
-    return ("k", "v") if cfg.attn_kind == "gqa" else ("c_kv", "k_rope")
+def cache_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The cache leaves a model's prefill fills (all but "lengths"): the
+    sequence-indexed ones (SEQ_KEYS), then the recurrent states."""
+    return {"gqa": ("k", "v"), "mla": ("c_kv", "k_rope"),
+            "hymba": ("k", "v", "conv", "ssm"),
+            "rwkv6": ("wkv", "tm_prev", "cm_prev")}[cfg.attn_kind]
+
+
+def _state_dtype(name: str, dtype):
+    return torch.float32 if name in F32_STATES else dtype
 
 
 def forward(params, cfg: ModelConfig, tokens=None,
@@ -344,32 +445,47 @@ def forward(params, cfg: ModelConfig, tokens=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                quant: bool = False, device="cuda") -> Dict[str, Any]:
-    """Zeroed decode cache. GQA quant=True: int8 k/v plus per-(position,
-    head) float32 scales (the layout the int8 rungs use). MLA: the latent
-    c_kv and k_rope (no int8 form)."""
-    _check_ported(cfg)
+    """Zeroed decode cache. GQA / hymba quant=True: int8 k/v plus
+    per-(position, head) float32 scales (the layout the int8 rungs use).
+    MLA: the latent c_kv and k_rope (no int8 form). Hymba adds its conv
+    and float32 ssm states, rwkv6 keeps only states (no int8 form)."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
-    Ln = cfg.n_layers
+    Ln, kind = cfg.n_layers, cfg.attn_kind
+    if quant and kind not in ("gqa", "hymba"):
+        raise ValueError(f"int8 caches need k/v; attn_kind={kind!r} has "
+                         f"none")
+
+    def zeros(name, *shape):
+        return torch.zeros((Ln, batch) + shape,
+                           dtype=_state_dtype(name, dtype), device=dev)
+
     c: Dict[str, Any] = {"lengths": torch.zeros((batch,), dtype=torch.int32,
                                                 device=dev)}
-    if cfg.attn_kind == "mla":
+    if kind in ("gqa", "hymba"):
+        kv_shape = (Ln, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        kv_dtype = torch.int8 if quant else dtype
+        c["k"] = torch.zeros(kv_shape, dtype=kv_dtype, device=dev)
+        c["v"] = torch.zeros(kv_shape, dtype=kv_dtype, device=dev)
         if quant:
-            raise ValueError("int8 caches need k/v; MLA keeps latents")
+            s_shape = kv_shape[:-1]
+            c["k_scale"] = torch.zeros(s_shape, dtype=torch.float32,
+                                       device=dev)
+            c["v_scale"] = torch.zeros(s_shape, dtype=torch.float32,
+                                       device=dev)
+    if kind == "mla":
         m = cfg.mla
-        c["c_kv"] = torch.zeros((Ln, batch, max_len, m.kv_lora_rank),
-                                dtype=dtype, device=dev)
-        c["k_rope"] = torch.zeros((Ln, batch, max_len, m.qk_rope_dim),
-                                  dtype=dtype, device=dev)
-        return c
-    kv_shape = (Ln, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    kv_dtype = torch.int8 if quant else dtype
-    c["k"] = torch.zeros(kv_shape, dtype=kv_dtype, device=dev)
-    c["v"] = torch.zeros(kv_shape, dtype=kv_dtype, device=dev)
-    if quant:
-        s_shape = kv_shape[:-1]
-        c["k_scale"] = torch.zeros(s_shape, dtype=torch.float32, device=dev)
-        c["v_scale"] = torch.zeros(s_shape, dtype=torch.float32, device=dev)
+        c["c_kv"] = zeros("c_kv", max_len, m.kv_lora_rank)
+        c["k_rope"] = zeros("k_rope", max_len, m.qk_rope_dim)
+    if kind == "hymba":
+        di = cfg.ssm.expand * cfg.d_model
+        c["conv"] = zeros("conv", cfg.ssm.d_conv - 1, di)
+        c["ssm"] = zeros("ssm", di, cfg.ssm.d_state)
+    if kind == "rwkv6":
+        hd = cfg.rwkv_head_size
+        c["wkv"] = zeros("wkv", cfg.rwkv_n_heads, hd, hd)
+        c["tm_prev"] = zeros("tm_prev", cfg.d_model)
+        c["cm_prev"] = zeros("cm_prev", cfg.d_model)
     return c
 
 
@@ -380,7 +496,9 @@ def prefill(params, cfg: ModelConfig, tokens=None,
     return (last_logits (B, V), cache).
 
     The prompt is right-padded to S; `lengths` (B,) gives true lengths
-    (default S). Cache arrays are padded to `max_len` (default S). Logits
+    (default S). Sequence-indexed cache arrays are padded to `max_len`
+    (default S); the states are those after all S positions, pad
+    positions included, as in the JAX package. Logits
     are computed at each item's last valid position only (the JAX package
     computes them everywhere and keeps that one: the same numbers, without
     a B x S x V tensor). `kernels` selects the attention route, as in
@@ -396,8 +514,8 @@ def prefill(params, cfg: ModelConfig, tokens=None,
     dtype = torch_dtype(cfg.dtype)
     cache: Dict[str, Any] = {"lengths": lengths}
     for name in cache_keys(cfg):
-        src = caches[name].to(dtype)              # (L, B, S, ...)
-        if max_len != S:
+        src = caches[name].to(_state_dtype(name, dtype))   # (L, B, ...)
+        if name in SEQ_KEYS and max_len != S:
             buf = torch.zeros(src.shape[:2] + (max_len,) + src.shape[3:],
                               dtype=dtype, device=dev)
             buf[:, :, :S] = src
@@ -427,8 +545,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
     """One decode step. tokens: (B, 1) (or embeds (B, 1, d)). Returns
     (logits (B, V), new_cache). The new token sits at position
     cache["lengths"]; lengths are incremented in the returned cache.
-    `rows` pins the dense layers' row count (see decode_multi)."""
-    _check_ported(cfg)
+    `rows` pins the dense layers' row count (see decode_multi), the SSM
+    mixers' included: their states are padded to `rows` like the inputs,
+    and the returned cache holds new state tensors of the B real rows.
+    On an int8 cache hymba's mixer sees k / v dequantised up front in
+    bfloat16, as in the JAX package (its mixer is not int8-aware)."""
     pos = cache["lengths"].long()                 # (B,)
     new_len = (pos + 1).to(torch.int32)
     B = pos.shape[0]
@@ -437,10 +558,19 @@ def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
     bidx = torch.arange(B, device=x.device)
     windows = build_window_array(cfg)
     quant = "k_scale" in cache
+    kind = cfg.attn_kind
+    states = {n: [] for n in cache_keys(cfg) if n not in SEQ_KEYS}
+
+    def state(name, i):
+        return L.pad_rows(cache[name][i], R)
+
+    def keep(name, t):
+        states[name].append(t[:B].to(cache[name].dtype))
+
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        if cfg.attn_kind == "mla":
+        if kind == "mla":
             ckv_new, krope_new = L.mla_latents(
                 p["attn"], h, cfg, L.pad_rows((new_len - 1)[:, None], R))
             cc, cr = cache["c_kv"][i], cache["k_rope"][i]
@@ -448,9 +578,15 @@ def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
             cr[bidx, pos] = krope_new[:B, 0].to(cr.dtype)
             x = x + L.mla_attn_decode(p["attn"], h, cfg, int(windows[i]),
                                       cc, cr, new_len)
+        elif kind == "rwkv6":
+            out, wkv, tm_prev = L.rwkv6_mix_step(
+                p["attn"], h, cfg, state("wkv", i), state("tm_prev", i))
+            keep("wkv", wkv)
+            keep("tm_prev", tm_prev)
+            x = x + out
         else:
-            k_new, v_new = L.gqa_new_kv(p["attn"], h, cfg,
-                                        L.pad_rows(new_len, R))
+            ap = p["attn"]["attn"] if kind == "hymba" else p["attn"]
+            k_new, v_new = L.gqa_new_kv(ap, h, cfg, L.pad_rows(new_len, R))
             ck, cv = cache["k"][i], cache["v"][i]
             if quant:
                 k_q, ks = _quantize(k_new)
@@ -464,21 +600,44 @@ def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
                 ck[bidx, pos] = k_new[:B, 0].to(ck.dtype)
                 cv[bidx, pos] = v_new[:B, 0].to(cv.dtype)
                 k_sc = v_sc = None
-            x = x + L.gqa_attn_decode(p["attn"], h, cfg, int(windows[i]),
-                                      ck, cv, new_len, kernels=kernels,
-                                      k_scale=k_sc, v_scale=v_sc)
+            if kind == "gqa":
+                x = x + L.gqa_attn_decode(p["attn"], h, cfg, int(windows[i]),
+                                          ck, cv, new_len, kernels=kernels,
+                                          k_scale=k_sc, v_scale=v_sc)
+            else:
+                if quant:
+                    ck, cv = _dequant_bf16(ck, k_sc), _dequant_bf16(cv, v_sc)
+                out, conv, ssm = L.hymba_mix_decode(
+                    p["attn"], h, cfg, int(windows[i]), ck, cv, new_len,
+                    state("conv", i), state("ssm", i), kernels=kernels)
+                keep("conv", conv)
+                keep("ssm", ssm)
+                x = x + out
         h2 = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        x = x + _mlp(p, h2, cfg, B)
+        if kind == "rwkv6":
+            x = x + L.rwkv_channel_mix(p["mlp"], h2,
+                                       state("cm_prev", i)[:, None, :])
+            keep("cm_prev", h2[:, 0])
+        else:
+            x = x + _mlp(p, h2, cfg, B)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ _head(params, cfg))[:B]
     new_cache = dict(cache)
+    new_cache.update({n: torch.stack(ts) for n, ts in states.items()})
     new_cache["lengths"] = new_len
     return logits, new_cache
 
 
+def _dequant_bf16(q8, scale):
+    """int8 rows times their scales, both cast to bfloat16 first and
+    multiplied in bfloat16 (the JAX package's hymba decode)."""
+    return q8.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
 def supports_fused_decode(cfg: ModelConfig) -> bool:
-    """Fused multi-token decode covers GQA caches only; MLA decodes token
-    by token (`decode_step`), as in the JAX package."""
+    """Fused multi-token decode covers GQA caches only; MLA and the
+    mixers that carry recurrent state (hymba, rwkv6) decode token by
+    token (`decode_step`), as in the JAX package."""
     return cfg.attn_kind == "gqa"
 
 

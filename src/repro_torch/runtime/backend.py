@@ -76,7 +76,7 @@ class RegistryBackend:
 
     name = "registry"
 
-    def __init__(self, registry: Callable):
+    def __init__(self, registry: Optional[Callable]):
         self._registry = registry
         self._cache: Dict[Any, List[PhysicalOperator]] = {}
         self._by_name: Dict[Any, PhysicalOperator] = {}
@@ -92,9 +92,17 @@ class RegistryBackend:
             with self._resolve_lock:
                 got = self._cache.get(op)
                 if got is None:
-                    got = list(self._registry(op))
+                    got = list(self._build_candidates(op))
                     self._cache[op] = got
         return got
+
+    def _build_candidates(self, op) -> List[PhysicalOperator]:
+        """The candidates of `op`, built once per op (`candidates`
+        memoizes them): the registry callable's. A subclass that builds
+        them from its own state overrides this, so that it keeps no
+        callable bound to itself (a reference cycle that would hold its
+        engines until the cyclic collector ran)."""
+        return self._registry(op)
 
     def resolve(self, op, op_name: str) -> PhysicalOperator:
         got = self._by_name.get((op, op_name))
@@ -270,9 +278,9 @@ class PoolBackend(RegistryBackend):
                 f"(engines: {sorted(self.members)})")
         self.cost_scales = {n: float((cost_scales or {}).get(n, 1.0))
                             for n in names}
-        super().__init__(self._union)
+        super().__init__(None)
 
-    def _union(self, op) -> List[PhysicalOperator]:
+    def _build_candidates(self, op) -> List[PhysicalOperator]:
         ops: List[PhysicalOperator] = []
         for name, member in self.members.items():
             for phys in member.candidates(op):

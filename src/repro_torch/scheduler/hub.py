@@ -383,3 +383,8 @@ class FlushHub:
         self._thread.join(timeout=30)
         if self._pool is not None:
             self._pool.shutdown(wait=True)
+        if not self._thread.is_alive():
+            # the callbacks are the scheduler's bound methods: dropped, the
+            # scheduler (and the session and engines it holds) is freed by
+            # reference counting once its last handle goes
+            self._charge = self._priority = None

@@ -249,17 +249,23 @@ class ServingEngine:
         its slice of those scores (the JAX engine rescores item by item and
         rung by rung; the kept sets are the same). Seconds per step
         accumulate in `build_seconds`; `prefill_chunks` counts the chunks
-        prefilled. MLA models keep latent caches, which have no int8 rung:
-        `quant_ratios` on one raises, as in the JAX package."""
+        prefilled. MLA models keep latent caches and rwkv6 keeps no
+        positional cache, so neither has an int8 rung: `quant_ratios` on
+        one raises, as in the JAX package. rwkv6 has no ladder either: it
+        is not calibrated, ratios above 0 are skipped, and its ratio-0
+        profile stores the prefill's states as they are."""
         em = self.models[model_name]
         cfg = em.cfg
-        if quant_ratios and cfg.attn_kind != "gqa":
+        if quant_ratios and cfg.attn_kind not in ("gqa", "hymba"):
             raise ValueError(
                 f"int8 KV profiles require a k/v cache; "
                 f"attn_kind={cfg.attn_kind!r} has none")
+        has_cache = cfg.attn_kind != "rwkv6"
+        if not has_cache:
+            ratios = [r for r in ratios if r <= 0]
         keys = cache_keys(cfg)
         secs = self.build_seconds
-        if em.stats is None:
+        if has_cache and em.stats is None:
             t0 = time.perf_counter()
             calib = _pad_tokens([it.tokens for it in items[:8]],
                                 device=self.device)

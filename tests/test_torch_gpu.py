@@ -1083,3 +1083,121 @@ def test_sharded_planted_bit_equal_to_inline_on_the_card(gpu, tmp_path):
             assert np.array_equal(r.map_values[li], base.map_values[li])
         assert ints(r) == ints(base)
         assert not eng._placed_params       # the card's own weights
+
+
+# ---------------------------------------------------------------------------
+# hymba-1.5b at full width, cut in depth: B, C and D at KV 5, G 5, d 64
+# ---------------------------------------------------------------------------
+
+def _hymba_cut():
+    """hymba-1.5b at its published widths, 2 layers: the global layer 0
+    and a windowed one (window 1024), bfloat16, random weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=2,
+                              global_layers=(0,))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    return cfg, params
+
+
+def _bf16_close(got, want):
+    """5 % of the largest magnitude: bfloat16 rounding differences of the
+    two attention routes carried through the layers (as the 8B prefill
+    test holds them)."""
+    scale = float(want.float().abs().max())
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=0.05 * scale,
+                               rtol=0)
+
+
+def test_hymba_prefill_chunk_launches_d_and_c(gpu):
+    """One hymba prefill chunk (2 items of 1200 and 1100 tokens, longer
+    than the window): D's tensor-core body in both layers, caches, states
+    and last logits against the plain route; then C over the chunk, one
+    launch, against its plain version."""
+    from repro_torch.cache.compression import calibrate_query_stats, \
+        score_chunk
+    from repro_torch.models import prefill
+    cfg, params = _hymba_cut()
+    assert cfg.n_heads // cfg.n_kv_heads == 5 and cfg.d_head == 64
+    toks = torch.randint(3, cfg.vocab_size, (2, 1200), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    lengths = torch.tensor([1200, 1100], dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()
+    got = prefill(params, cfg, toks, lengths=lengths, kernels="cuda")
+    after = ops.launch_counts()
+    assert after["prefill_attention_by_body"]["tc"] \
+        == before["prefill_attention_by_body"]["tc"] + cfg.n_layers
+    want = prefill(params, cfg, toks, lengths=lengths, kernels="ref")
+    _bf16_close(got[0], want[0])
+    for key in ("k", "v", "conv", "ssm"):
+        assert got[1][key].dtype == want[1][key].dtype
+        _bf16_close(got[1][key], want[1][key])
+    stats = calibrate_query_stats(params, cfg, tokens=toks)
+    n = EA.expected_attention_scores.launches
+    scores = score_chunk(cfg, got[1], stats, [1200, 1100])
+    assert EA.expected_attention_scores.launches == n + 1
+    plain = score_chunk(cfg, got[1], stats, [1200, 1100], kernels="ref")
+    live = plain.isfinite()
+    assert torch.equal(scores.isfinite(), live)
+    _ea_close(scores[live], plain[live])
+    del params
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_hymba_decode_flush_launches_b(gpu, quant):
+    """One hymba decode step over a prefilled cache (int8: quantised, and
+    dequantised to bfloat16 before the mixer): B in both layers, never
+    B-int8 or A, each launch against the plain version on its inputs, and
+    the logits and states against the plain route."""
+    from repro_torch.cache.compression import quantize_kv
+    from repro_torch.models import decode_step, prefill
+    cfg, params = _hymba_cut()
+    toks = torch.randint(3, cfg.vocab_size, (3, 1100), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+    _, cache = prefill(params, cfg, toks[:, :-1], max_len=1152,
+                       kernels="cuda")
+    if quant:
+        q8 = quantize_kv({k: cache[k] for k in ("k", "v")})
+        cache.update(q8)
+    calls = []
+    real = ops.decode_attention
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+    ops.decode_attention = rec
+    try:
+        before = ops.launch_counts()
+        got, gc = decode_step(params, cfg, {k: v.clone()
+                                            for k, v in cache.items()},
+                              tokens=toks[:, -1:], kernels="cuda", rows=8)
+        after = ops.launch_counts()
+    finally:
+        ops.decode_attention = real
+    assert after["decode_attention"] == \
+        before["decode_attention"] + cfg.n_layers
+    for name in ("decode_attention_int8", "decode_query_attention",
+                 "decode_query_attention_int8"):
+        assert after[name] == before[name]
+    for a, kw, out in calls:
+        q, k, v, lengths = a
+        assert k.dtype == torch.bfloat16 and q.shape[1:] == (5, 5, 64)
+        want = ref.decode_attention_ref(q, k, v, lengths,
+                                        window=min(kw["window"], GLOBAL))
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[torch.bfloat16], rtol=0)
+    want, wc = decode_step(params, cfg, {k: v.clone()
+                                         for k, v in cache.items()},
+                           tokens=toks[:, -1:], kernels="ref", rows=8)
+    _bf16_close(got, want)
+    for key in ("conv", "ssm"):
+        _bf16_close(gc[key], wc[key])
+    del params
+    torch.cuda.empty_cache()

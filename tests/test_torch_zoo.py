@@ -3,9 +3,9 @@
 Every registered config: the reduced same-family config's forward shapes
 and decode-vs-forward consistency (twins of tests/test_models_smoke.py),
 and, with the JAX weights carried across by `params_from_jax` (float32),
-forward / prefill / decode logits within atol 1e-5. hymba-1.5b and
-rwkv6-1.6b register, but their mixers wait for a later slice: building
-them raises NotImplementedError pointing at ROADMAP.md.
+forward / prefill / decode logits within atol 1e-5, hymba-1.5b and
+rwkv6-1.6b (their recurrent states) included; tests/test_torch_ssm.py
+holds their mixers and engines.
 
 Then the new layers and the cache-keeping path at reduced widths:
 `mla_attn_decode`, `moe_mlp` (dense and scatter, at a capacity that drops
@@ -41,8 +41,6 @@ from repro_torch.serving.engine import ServingEngine
 
 KEY = jax.random.PRNGKey(0)
 ALL_ARCHS = sorted(REGISTRY)
-LATER = ("hymba-1.5b", "rwkv6-1.6b")
-PORTED = [a for a in ALL_ARCHS if a not in LATER]
 ATOL = 1e-5          # float32 logits of the reduced configs (|x| < 1)
 
 
@@ -92,18 +90,7 @@ def test_registry_matches_jax():
         get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch", LATER)
-def test_later_mixers_raise(arch):
-    cfg = get_config(arch).reduced()
-    for build in (lambda: tT.model_template(cfg),
-                  lambda: tT.init_params(cfg, torch.Generator(),
-                                         device="cpu"),
-                  lambda: tT.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build()
-
-
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_shapes_no_nans(arch):
     cfg = get_config(arch).reduced()
     params = tT.init_params(cfg, torch.Generator().manual_seed(0),
@@ -113,7 +100,7 @@ def test_forward_shapes_no_nans(arch):
     assert not bool(torch.isnan(logits.float()).any())
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_decode_matches_forward(arch):
     cfg = get_config(arch).reduced(dtype="float32")
     params = tT.init_params(cfg, torch.Generator().manual_seed(0),
@@ -131,7 +118,7 @@ def test_decode_matches_forward(arch):
     assert int(cache["lengths"][0]) == S + 1
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_logits_and_caches_match_jax(arch):
     """forward, prefill (its caches) and a pinned-row decode step (scan;
     and decode_multi where fused decode applies) against the JAX
@@ -165,17 +152,13 @@ def test_logits_and_caches_match_jax(arch):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_axes_and_windows_match_jax(arch):
     jcfg, cfg = JREGISTRY[arch], REGISTRY[arch]
     assert tT.param_axes(cfg) == jT.param_axes(jcfg)
     assert tT.cache_axes(cfg) == jT.cache_axes(jcfg)
     np.testing.assert_array_equal(tT.build_window_array(cfg),
                                   jT.build_window_array(jcfg))
-    for hy in ("hymba-1.5b",):         # global_layers: the window array
-        np.testing.assert_array_equal(    # needs no mixer
-            tT.build_window_array(REGISTRY[hy]),
-            jT.build_window_array(JREGISTRY[hy]))
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
