@@ -190,6 +190,33 @@ Phases, one JSON line each:
            one: D, and B at each of two decode steps, G 5, window 1024);
            minicpm3-4b (2 layers): C at its latent shape (KV 1, G 40, dk
            288)
+  train_parity  granite-8b at full width, 2 layers, float32: one step's
+           loss and grads on the card (B 1, S 256) against the port's CPU
+           step from the same weights and batch (loss 1e-5 relative, each
+           grad leaf 1e-3 of its max), and adamw_update fed the CPU's
+           grads on both (1e-6 of each leaf's max)
+  train_granite  granite-8b at full width (d_model 4096, 32 / 8 heads of
+           128, d_ff 14336, vocab 49152, bf16), 8 of 36 layers: the bytes
+           reckoned from launch/specs.py's meta tensors first (B cut
+           until they fit), a finite non-zero grad on every param leaf on
+           step 1's batch, then 10 AdamW steps of B 8 x S 1024 Zipfian
+           tokens (data/pipeline.lm_batches) through run_training(
+           make_train_step(...)): losses finite and falling, step ms
+           (median after 2 warm-up steps), tokens/s, MFU (6 N T + the
+           causal attention's flops over 989 TFLOP/s), peak memory against
+           the reckoned bytes, the step's device time by part
+           (torch.profiler: attention, dense products, optimizer, other),
+           remat off / none / dots at B 2, and the blocked attention's
+           forward + backward against SDPA's at one layer's shapes
+  train_zoo  every registered arch's reduced() config, float32: one
+           step's loss and grads on the card against the CPU's (1e-5,
+           1e-4 of each leaf's max): hymba's scan, the WKV, MLA, MoE and
+           the frontends backward on CUDA
+  train_loop  launch/train.main on the card (reduced granite, 4 steps),
+           then run_training with a failure injected at step 7 and a
+           resume from a checkpoint at step 8
+The train phases launch none of A-E (a kernel reached under autograd
+raises: the kernels have no backward); each fails if a count moved.
 Every profile build (prefill and calibration) runs the prefill kernel D
 in every layer, so D is launched on every Session path: its tensor-core
 body on the 8B paths (bfloat16, d 128) and its FMA body on the planted
@@ -4312,6 +4339,542 @@ def phase_zoo_legs(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# training on the card: granite-8b at full width, cut in depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-8b"
+TRAIN_LAYERS = 8                 # of 36: 2.15 B params, 25.8 GB of state
+TRAIN_B, TRAIN_S = 8, 1024
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+TRAIN_LR = 5e-5                  # no warm-up: 1e-4 and above spike at step 2
+REMAT_B = 2
+FIT_SHARE = 0.9                  # of the card's free memory
+PARITY_LAYERS, PARITY_S = 2, 256
+ZOO_TRAIN_B, ZOO_TRAIN_S = 2, 64
+
+
+def _mem_gb(torch):
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _no_kernel_launched(phase, before, after):
+    if before != after:
+        die(phase, f"the train path launched a kernel of kernels.ops: "
+                   f"{before} -> {after}")
+
+
+def _leaf_errs(got, want):
+    """Max over leaves of max |got - want| / max |want|, and the leaf."""
+    from repro_torch.training.tree import leaves_with_paths, path_key
+    want = {path_key(p): x for p, x in leaves_with_paths(want)}
+    worst, at = 0.0, None
+    for p, x in leaves_with_paths(got):
+        w = want[path_key(p)].float().cpu()
+        e = float((x.float().cpu() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        if e >= worst:
+            worst, at = e, path_key(p)
+    return worst, at
+
+
+def _train_batch(cfg, B, S, device, seed=1234):
+    """The first batch of the port's `lm_batches` (Zipfian tokens, or
+    embeds + labels for a frontend) on `device`."""
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.train import to_device
+    embeds_dim = cfg.d_model if cfg.frontend != "none" else None
+    return to_device(next(lm_batches(cfg.vocab_size, B, S, seed=seed,
+                                     embeds_dim=embeds_dim)), device)
+
+
+def _card_vs_cpu_step(torch, cfg, params, B, S):
+    """value_and_grad of one batch on the card and by the port on the CPU
+    from the same weights: (loss rel err, (grad err, leaf), the card's
+    missing leaves, the card's loss, CPU params and grads)."""
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_map
+    batch = _train_batch(cfg, B, S, DEV)
+    loss, grads, missing = value_and_grad(params, batch, cfg, remat=False)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    closs, cgrads, _ = value_and_grad(
+        cpu, {k: v.cpu() for k, v in batch.items()}, cfg, remat=False)
+    rel = abs(float(loss) - float(closs)) / abs(float(closs))
+    return rel, _leaf_errs(grads, cgrads), missing, float(loss), cpu, cgrads
+
+
+def phase_train_parity(torch):
+    """granite-8b at full width, 2 layers, float32: one train step's loss
+    and grads on the card against the port's CPU step from the same
+    weights and batch (B 1, S 256); then adamw_update fed the CPU's grads,
+    on the card and on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import adamw_init, adamw_update
+    from repro_torch.training.train_step import train_step
+    from repro_torch.training.tree import tree_map
+    emit("train_parity_memory", allocated_gb=_mem_gb(torch))
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=PARITY_LAYERS, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    rel, (gerr, gleaf), missing, loss, cpu, cgrads = _card_vs_cpu_step(
+        torch, cfg, params, 1, PARITY_S)
+    step_s = time.perf_counter() - t0
+    new_p, new_o, step_loss = train_step(
+        params, adamw_init(params), _train_batch(cfg, 1, PARITY_S, DEV), cfg,
+        remat=False)
+    _no_kernel_launched("train_parity", before, ops.launch_counts())
+    if not (rel <= 1e-5 and gerr <= 1e-3 and not missing
+            and int(new_o.step) == 1 and abs(float(step_loss) - loss)
+            <= 1e-6 * abs(loss)):
+        die("train_parity", f"loss rel {rel}, grads {gerr} at {gleaf}, "
+                            f"missing {missing}, step loss {step_loss}")
+    del new_p, new_o
+    got_p, got_s = adamw_update(tree_map(lambda g: g.to(DEV), cgrads),
+                                adamw_init(params), params)
+    want_p, want_s = adamw_update(cgrads, adamw_init(cpu), cpu)
+    upd = {"params": _leaf_errs(got_p, want_p),
+           "m": _leaf_errs(got_s.m, want_s.m),
+           "v": _leaf_errs(got_s.v, want_s.v)}
+    if not all(e <= 1e-6 for e, _ in upd.values()):
+        die("train_parity", f"adamw_update card vs CPU: {upd}")
+    emit("train_parity", ok=True, arch=TRAIN_ARCH, n_layers=PARITY_LAYERS,
+         dtype="float32", batch=1, seq=PARITY_S, loss=loss,
+         loss_rel_err=rel, grad_err=gerr, grad_err_leaf=gleaf,
+         update_rel_err={k: e for k, (e, _) in upd.items()},
+         value_and_grad_card_and_cpu_s=step_s,
+         tol="loss 1e-5 relative; grads 1e-3 x each leaf's max |grad|; "
+             "adamw_update 1e-6 x each leaf's max")
+    del params, cpu, cgrads, got_p, got_s, want_p, want_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_activation_bytes(cfg, B, S) -> int:
+    """What autograd keeps for one step's backward with remat off (an
+    estimate from the ops each layer records): the norms' float32 copies
+    and outputs, q / k / v and their float32 rope copies, the blocked
+    attention's float32 scores and probabilities per live (query, key)
+    block pair with its accumulators and float32 k / v blocks, the
+    output projection's input, the MLP's gate, up, activation and
+    product, per layer; then the embeddings."""
+    from repro_torch.models.layers import FLASH_BLOCK
+    T, d, H, KV, dh, ff = (B * S, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.d_head, cfg.d_ff)
+    e, f = (2 if cfg.dtype == "bfloat16" else 4), 4
+    blk = min(FLASH_BLOCK, S)
+    nq = S // blk
+    pairs = nq * (nq + 1) // 2
+    attn = pairs * (2 * B * H * blk * blk * f + B * H * blk * dh * f
+                    + 2 * B * blk * KV * dh * f) + T * H * dh * f * 2
+    per_layer = (2 * T * d * (2 * f + e) + T * (H + 2 * KV) * dh * e
+                 + T * (H + KV) * dh * f + attn + T * H * dh * e
+                 + T * d * e + 4 * T * ff * e)
+    return cfg.n_layers * per_layer + T * d * e
+
+
+def _train_reckon(cfg, B, S) -> dict:
+    """Bytes the step holds, reckoned from the meta-device specs before
+    anything is allocated. Steady state: params + AdamW state. Backward:
+    plus the activations, the loss's logits (bf16, a float32 copy and its
+    float32 grad) and the grads. Update (functional): plus the grads, the
+    new params and moments, and four float32 copies of the largest leaf."""
+    from repro_torch.launch.specs import opt_state_sds, params_sds, \
+        tree_bytes
+    from repro_torch.training.tree import leaves
+    p_sds = params_sds(cfg)
+    P, O = tree_bytes(p_sds), tree_bytes(opt_state_sds(cfg))
+    largest = max(t.numel() for t in leaves(p_sds)) * 4
+    act = _train_activation_bytes(cfg, B, S)
+    logits = B * S * cfg.vocab_padded * (2 + 4 + 4)
+    backward = P + O + act + logits + P
+    update = P + O + P + (P + O) + 4 * largest
+    n_params = sum(t.numel() for t in leaves(p_sds))
+    return dict(params_gb=P / 1e9, opt_state_gb=O / 1e9,
+                steady_gb=(P + O) / 1e9, grads_gb=P / 1e9,
+                activations_gb=act / 1e9, logits_gb=logits / 1e9,
+                update_new_gb=(P + O) / 1e9, backward_peak_gb=backward / 1e9,
+                update_peak_gb=update / 1e9,
+                reckoned_peak_gb=max(backward, update) / 1e9,
+                n_params=n_params)
+
+
+def _train_flops(cfg, n_params, B, S) -> float:
+    """6 N T for the weights, plus the causal attention's products: 4 dh
+    flops per live (query, key) pair and head in the forward, x3 with the
+    backward."""
+    attn = 12 * cfg.d_head * B * cfg.n_heads * (S * (S + 1) // 2)
+    return 6 * n_params * B * S + cfg.n_layers * attn
+
+
+def _train_split(torch, step):
+    """The device ms of one `step()` by part, from a torch.profiler trace:
+    "attention" is the blocked attention (every kernel issued inside
+    `flash_attention`, marked by a record_function range, and in the
+    backward every kernel of an autograd node whose sequence number one of
+    those forward ops recorded), "optimizer" `adamw_update`, "dense" the
+    weight products (`aten::mm`, forward and backward) outside those,
+    "other" the rest (norms, rope, the loss, elementwise). None where the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+    from repro_torch.training import train_step as TS
+    real = (L.flash_attention, TS.adamw_update)
+
+    def attn(*a, **kw):
+        with record_function("train.attention"):
+            return real[0](*a, **kw)
+
+    def adam(*a, **kw):
+        with record_function("train.optimizer"):
+            return real[1](*a, **kw)
+    L.flash_attention, TS.adamw_update = attn, adam
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        L.flash_attention, TS.adamw_update = real
+    evs = prof.profiler.kineto_results.events()
+    cpu = [e for e in evs if e.device_type() == DeviceType.CPU]
+    host = {e.correlation_id(): e for e in cpu}
+
+    def ranges(name):
+        return [(e.start_thread_id(), e.start_ns(), e.end_ns()) for e in cpu
+                if e.name() == name]
+    attn_r, opt_r = ranges("train.attention"), ranges("train.optimizer")
+
+    def inside(e, rs):
+        return any(t == e.start_thread_id() and lo <= e.start_ns() <= hi
+                   for t, lo, hi in rs)
+    seqs = {e.sequence_nr() for e in cpu
+            if e.sequence_nr() >= 0 and inside(e, attn_r)}
+    nodes = [(e.start_thread_id(), e.start_ns(), e.end_ns(),
+              e.sequence_nr()) for e in cpu
+             if e.name().startswith("autograd::engine::evaluate_function")]
+    bwd_attn = [(t, lo, hi) for t, lo, hi, s in nodes if s in seqs]
+    split = dict.fromkeys(("attention", "dense", "optimizer", "other"), 0.0)
+    n = 0
+    for e in evs:
+        if e.device_type() != DeviceType.CUDA or e.name().startswith(
+                "train."):
+            continue
+        h = host.get(e.linked_correlation_id())
+        ms = e.duration_ns() / 1e6
+        n += 1
+        if h is None:
+            split["other"] += ms
+        elif inside(h, opt_r):
+            split["optimizer"] += ms
+        elif inside(h, attn_r) or inside(h, bwd_attn):
+            split["attention"] += ms
+        elif h.name() in ("aten::mm", "aten::addmm"):
+            split["dense"] += ms
+        else:
+            split["other"] += ms
+    total = sum(split.values())
+    if total <= 0:
+        return None
+    out = {k + "_ms": v for k, v in split.items()}
+    out.update(device_ms=total, kernels=n,
+               attention_share=split["attention"] / total)
+    return out
+
+
+def _attention_yardstick(torch, flush, B, S, H, KV, dh):
+    """Forward + backward of the blocked attention (the train path's)
+    against scaled_dot_product_attention with its backward, at one
+    layer's shapes (causal, bf16): device ms of each, L2 flushed, and the
+    two's outputs and grads against each other. SDPA stays off the path."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=DEV).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+    q, k, v = rnd(B, S, H, dh), rnd(B, S, KV, dh), rnd(B, S, KV, dh)
+    go = rnd(B, S, H, dh)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+
+    def blocked():
+        out = L.flash_attention(q, k, v, L.GLOBAL_WINDOW,
+                                block_q=L.FLASH_BLOCK, block_k=L.FLASH_BLOCK)
+        return (out,) + torch.autograd.grad(out, (q, k, v), go)
+
+    def sdpa():
+        try:
+            out = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+        except TypeError:          # a torch without enable_gqa
+            rep = lambda t: t.transpose(1, 2).repeat_interleave(  # noqa
+                H // KV, dim=1)
+            out = F.scaled_dot_product_attention(
+                q.transpose(1, 2), rep(k), rep(v), is_causal=True)
+        out = out.transpose(1, 2)
+        return (out,) + torch.autograd.grad(out, (q, k, v), go)
+    errs = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), blocked(), sdpa()):
+        a, b = a.detach().float(), b.detach().float()
+        errs[name] = float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+    ms = time_ms(torch, blocked, flush, iters=5, warmup=2)
+    sdpa_ms = time_ms(torch, sdpa, flush, iters=5, warmup=2)
+    flops = 12 * dh * B * H * (S * (S + 1) // 2)
+    return dict(shape=dict(B=B, S=S, H=H, KV=KV, d=dh, dtype="bfloat16",
+                           causal=True),
+                blocked_fwd_bwd_ms=ms, sdpa_fwd_bwd_ms=sdpa_ms,
+                blocked_over_sdpa=ms / sdpa_ms,
+                bound_ms=flops / PEAK_BF16_TC_FLOPS * 1e3,
+                blocked_vs_sdpa_rel_err=errs)
+
+
+def _remat_rows(torch, cfg, params, opt):
+    """At B 2 x S 1024 under remat off / none / dots: a train step's ms
+    (median of 2 after 1 warm-up), and the peak memory of its forward +
+    backward alone (the functional update's new state, the same under
+    every policy, stays out of it)."""
+    import statistics
+    from repro_torch.training.train_step import train_step, value_and_grad
+    batch = _train_batch(cfg, REMAT_B, TRAIN_S, DEV, seed=7)
+    rows = {}
+    for label, remat, policy in (("off", False, "none"),
+                                 ("none", True, "none"),
+                                 ("dots", True, "dots")):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(params, opt, batch, cfg, lr=TRAIN_LR,
+                             remat=remat, remat_policy=policy)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads, _ = value_and_grad(params, batch, cfg, remat=remat,
+                                        remat_policy=policy)
+        torch.cuda.synchronize()
+        rows[label] = dict(step_ms=statistics.median(times[1:]),
+                           fwd_bwd_peak_gb=torch.cuda.max_memory_allocated()
+                           / 1e9, loss=float(loss))
+        del grads
+    losses = [r["loss"] for r in rows.values()]
+    if max(losses) - min(losses) > 1e-3 * abs(losses[0]):
+        die("train_granite", f"remat changed the loss: {rows}")
+    return rows
+
+
+def phase_train_granite(torch, smi_line):
+    """granite-8b at full width (d_model 4096, 32 q / 8 KV heads of 128,
+    d_ff 14336, vocab 49152, bf16), 8 of its 36 layers, remat off:
+    the bytes reckoned from the specs first (B cut until they fit), a
+    grad on every param leaf on step 1's batch, then 10 steps of B 8 x
+    S 1024 Zipfian tokens from `lm_batches` through
+    run_training(make_train_step(...)): losses finite and falling, step
+    ms, tokens/s, MFU, peak memory, the device split (torch.profiler),
+    remat off / none / dots at B 2, and the attention's yardstick."""
+    import dataclasses
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import init_params
+    from repro_torch.training.loop import LoopConfig, run_training
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import (make_train_step,
+                                                 train_step, value_and_grad)
+    from repro_torch.training.tree import leaves_with_paths, path_key
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_granite_memory", allocated_gb=_mem_gb(torch))
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    B, cuts = TRAIN_B, []
+    rk = _train_reckon(cfg, B, TRAIN_S)
+    while rk["reckoned_peak_gb"] > FIT_SHARE * free and B > 1:
+        cuts.append(f"B {B}: reckoned {rk['reckoned_peak_gb']:.1f} GB > "
+                    f"{FIT_SHARE} x {free:.1f} GB free")
+        B //= 2
+        rk = _train_reckon(cfg, B, TRAIN_S)
+    emit("train_granite_reckoned", batch=B, seq=TRAIN_S, free_gb=free,
+         cuts=cuts, **rk)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = ops.launch_counts()
+    stream = (to_device(b, DEV) for b in lm_batches(cfg.vocab_size, B,
+                                                     TRAIN_S))
+    # the stream's first batch (the same seed)
+    loss1, grads, missing = value_and_grad(
+        params, _train_batch(cfg, B, TRAIN_S, DEV), cfg, remat=False)
+    bad = [path_key(p) for p, g in leaves_with_paths(grads)
+           if not bool(torch.isfinite(g).all())]
+    zero = [path_key(p) for p, g in leaves_with_paths(grads)
+            if not bool(g.abs().max() > 0)]
+    if missing or bad or zero:
+        die("train_granite", f"step 1: leaves with no grad {missing}, "
+                             f"non-finite {bad}, all-zero {zero}")
+    n_leaves = len(leaves_with_paths(grads))
+    del grads
+    step_fn = make_train_step(cfg, lr=TRAIN_LR, remat=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    box = [params, opt]
+    del params, opt
+    # popped into the call: the loop holds the only reference to each
+    # state, so the step before last is freed as the loop moves on
+    params, opt, rep = run_training(step_fn, box.pop(0), box.pop(0), stream,
+                                    LoopConfig(total_steps=TRAIN_STEPS,
+                                               ckpt_dir=None))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _no_kernel_launched("train_granite", before, ops.launch_counts())
+    losses = rep.losses
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and abs(losses[0] - float(loss1)) <= 1e-2 * abs(losses[0])):
+        die("train_granite", f"losses {losses} (step 1 alone {loss1})")
+    step_s = statistics.median(rep.step_seconds[TRAIN_WARMUP:])
+    flops = _train_flops(cfg, rk["n_params"], B, TRAIN_S)
+    batch = _train_batch(cfg, B, TRAIN_S, DEV, seed=9)
+    split = _train_split(torch, lambda: train_step(params, opt, batch, cfg,
+                                                   lr=TRAIN_LR, remat=False))
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = _remat_rows(torch, cfg, params, opt)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    yard = _attention_yardstick(torch, flush, B, TRAIN_S, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.d_head)
+    del flush
+    emit("train_granite", ok=True, arch=TRAIN_ARCH, n_layers=TRAIN_LAYERS,
+         of_layers=get_config(TRAIN_ARCH).n_layers, dtype=cfg.dtype,
+         n_params=rk["n_params"], batch=B, seq=TRAIN_S, steps=TRAIN_STEPS,
+         lr=TRAIN_LR, init_s=init_s, param_leaves=n_leaves, losses=losses,
+         step_s=rep.step_seconds, step_ms=step_s * 1e3,
+         tokens_per_s=B * TRAIN_S / step_s, peak_gb=peak,
+         reckoned_peak_gb=rk["reckoned_peak_gb"],
+         peak_over_reckoned=peak / rk["reckoned_peak_gb"],
+         model_flops=flops, mfu=flops / step_s / PEAK_BF16_TC_FLOPS,
+         mfu_peak="989 TFLOP/s bf16 dense", device_split=split,
+         remat_b2=remat, attention_yardstick=yard, card=smi_line,
+         stragglers=rep.straggler_events,
+         cut=f"depth {TRAIN_LAYERS} of 36 layers" + (
+             f"; batch {B} of {TRAIN_B}" if B != TRAIN_B else ""))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_zoo(torch):
+    """Every registered arch's reduced() config in float32: one step's
+    loss and grads on the card against the port's CPU step from the same
+    weights (drawn on the CPU), B 2 x S 64 from `lm_batches`, and one
+    train_step on the card. Covers the backward of hymba's scan, the WKV,
+    MLA, MoE and the frontends on CUDA."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import train_step
+    from repro_torch.training.tree import tree_map
+    emit("train_zoo_memory", allocated_gb=_mem_gb(torch))
+    rows = {}
+    before = ops.launch_counts()
+    for arch in sorted(REGISTRY):
+        cfg = REGISTRY[arch].reduced(dtype="float32")
+        params = tree_map(lambda t: t.to(DEV), init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        rel, (gerr, leaf), missing, loss, _, _ = _card_vs_cpu_step(
+            torch, cfg, params, ZOO_TRAIN_B, ZOO_TRAIN_S)
+        _, new_o, _ = train_step(params, adamw_init(params), _train_batch(
+            cfg, ZOO_TRAIN_B, ZOO_TRAIN_S, DEV), cfg, remat=False)
+        want_missing = ["embed"] if cfg.frontend != "none" else []
+        rows[arch] = dict(loss=loss, loss_rel_err=rel, grad_err=gerr,
+                          grad_err_leaf=leaf, missing=missing)
+        if not (rel <= 1e-5 and gerr <= 1e-4 and missing == want_missing
+                and int(new_o.step) == 1):
+            die("train_zoo", f"{arch}: {rows[arch]}")
+    _no_kernel_launched("train_zoo", before, ops.launch_counts())
+    emit("train_zoo", ok=True, archs=rows, batch=ZOO_TRAIN_B,
+         seq=ZOO_TRAIN_S, tol="loss 1e-5 relative; grads 1e-4 x each "
+         "leaf's max |grad|")
+    torch.cuda.empty_cache()
+
+
+def phase_train_loop(torch):
+    """The launcher's main() on the card (reduced granite, 4 steps), then
+    run_training as the reference's test drives it: 10 steps with a
+    checkpoint every 4 in a temp dir, a failure injected at step 7
+    (retried once), and a rerun that resumes from step 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.training.loop import LoopConfig, run_training
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import leaves
+    emit("train_loop_memory", allocated_gb=_mem_gb(torch))
+    before = ops.launch_counts()
+    rep = launch_train.main(["--steps", "4", "--batch", "2", "--seq", "64"])
+    if not (rep.steps_run == 4 and all(math.isfinite(x)
+                                       for x in rep.losses)):
+        die("train_loop", f"launcher: {rep}")
+    cfg = get_config(TRAIN_ARCH).reduced(n_layers=1, d_model=32, n_heads=2,
+                                         n_kv_heads=2, d_head=16, d_ff=32)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, remat=False)
+    g = torch.Generator(device=DEV).manual_seed(0)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                        generator=g, device=DEV)}
+               for _ in range(12)]
+    boom = {"armed": True}
+
+    def injector(step):
+        if step == 7 and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("simulated preemption")
+    root = os.path.join(WORK, "train-ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    p1, o1, rep1 = run_training(step_fn, params, opt, batches,
+                                LoopConfig(total_steps=10, ckpt_every=4,
+                                           ckpt_dir=root),
+                                failure_injector=injector)
+    p2, o2, rep2 = run_training(step_fn, params, opt, batches,
+                                LoopConfig(total_steps=10, ckpt_every=4,
+                                           ckpt_dir=root))
+    _no_kernel_launched("train_loop", before, ops.launch_counts())
+    on_card = all(t.is_cuda for t in leaves((p2, o2)))
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(leaves((p1, o1)), leaves((p2, o2))))
+    if not (rep1.steps_run == 10 and rep1.retries == 1
+            and rep2.resumed_from == 8 and rep2.steps_run == 2 and on_card
+            and int(o2.step) == 10):
+        die("train_loop", f"first run {rep1}, resumed run {rep2}, "
+                          f"on the card {on_card}")
+    shutil.rmtree(root, ignore_errors=True)
+    emit("train_loop", ok=True, launcher_losses=rep.losses,
+         retries=rep1.retries, resumed_from=rep2.resumed_from,
+         resumed_steps=rep2.steps_run, ckpts=len(rep1.ckpts),
+         resumed_vs_uninterrupted_max_abs=diff)
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -4450,6 +5013,10 @@ def main() -> int:
         paths["session_rwkv6"] = phase_session_rwkv6(torch)
         paths["zoo_legs"] = phase_zoo_legs(torch)
         _check_prefill_bodies(paths)
+        phase_train_parity(torch)
+        phase_train_granite(torch, smi_line)
+        phase_train_zoo(torch)
+        phase_train_loop(torch)
         rows.update(phase_planner(torch, problems))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

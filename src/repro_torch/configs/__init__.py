@@ -1,13 +1,14 @@
 """Architecture configs of the port: ``get_config("<arch-id>")``.
 
-Copies of the JAX package's eleven configs (`repro.configs`). hymba-1.5b
-and rwkv6-1.6b register, but their models wait for a later slice
-(`models.transformer.model_template` raises; ROADMAP.md)."""
+Copies of the JAX package's eleven configs (`repro.configs`) and its four
+shape cells (`SHAPES`)."""
 from repro_torch.configs import (dbrx_132b, deepseek_v2_lite_16b, gemma3_27b,
                                  granite_8b, hymba_1p5b, llava_next_34b,
                                  minicpm3_4b, minitron_8b, musicgen_medium,
                                  rwkv6_1p6b, stretto_llama_8b)
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (ALL_SHAPES, SHAPES, MLAConfig,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig)
 
 REGISTRY = {
     m.CONFIG.name: m.CONFIG
@@ -28,4 +29,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "REGISTRY",
-           "ASSIGNED", "get_config"]
+           "ASSIGNED", "get_config", "ShapeConfig", "SHAPES", "ALL_SHAPES"]

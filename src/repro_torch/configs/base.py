@@ -1,8 +1,10 @@
 """Model configuration dataclasses for the PyTorch port.
 
 A copy of `repro.configs.base.ModelConfig` and its sub-configs: the port
-keeps its own so it never imports the JAX package. The TPU shape cells
-(`ShapeConfig`) stay behind with the dry-run tooling.
+keeps its own so it never imports the JAX package. The shape cells
+(`ShapeConfig`, the four production shapes) are copied for the launch
+specs (`launch/specs.py`); which arch runs which shape stays behind with
+the dry-run tooling.
 """
 from __future__ import annotations
 
@@ -168,3 +170,20 @@ class ModelConfig:
     @property
     def rwkv_n_heads(self) -> int:
         return self.d_model // self.rwkv_head_size
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}

@@ -59,14 +59,24 @@ def resolve_backend(backend=None) -> str:
     return backend
 
 
-def use_kernel(backend, x: torch.Tensor) -> bool:
-    """True when the call must launch the CUDA kernel for tensor `x`."""
+def use_kernel(backend, x: torch.Tensor, *inputs) -> bool:
+    """True when the call must launch the CUDA kernel for tensor `x`.
+    `inputs` are the call's other tensor inputs (None is skipped). The
+    kernels have no backward: a launch under grad mode with an input that
+    requires grad raises, where it would silently cut the graph."""
     backend = resolve_backend(backend)
     if backend == "ref":
         return False
     if backend == "cuda" and not x.is_cuda:
         raise ValueError(f"kernels backend 'cuda' needs CUDA tensors, got a "
                          f"tensor on {x.device}")
+    if x.is_cuda and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x,) + inputs):
+        raise RuntimeError(
+            "a CUDA kernel of kernels.ops was reached under autograd with "
+            "an input that requires grad; the kernels have no backward. "
+            "Take the differentiable route (models.forward(..., "
+            "differentiable=True)) or run under torch.no_grad()")
     return x.is_cuda
 
 
@@ -127,7 +137,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,
     """Single-query flash-decode; (B, KV, G, dk) -> (B, KV, G, dv).
     With k_scale / v_scale (B, S, KV), k_cache / v_cache are int8."""
     quant = k_scale is not None
-    if use_kernel(backend, q):
+    if use_kernel(backend, q, k_cache, v_cache, k_scale, v_scale):
         if quant:
             return _da.decode_attention_int8(q, k_cache, v_cache, k_scale,
                                              v_scale, lengths, window=window)
@@ -152,7 +162,7 @@ def decode_query_attention(q, k_cache, v_cache, lengths, *, window=GLOBAL,
     (B, Lq, KV, G, dv). `lengths` includes the Lq query tokens. With
     k_scale / v_scale (B, S, KV), k_cache / v_cache are int8."""
     quant = k_scale is not None
-    if use_kernel(backend, q):
+    if use_kernel(backend, q, k_cache, v_cache, k_scale, v_scale):
         if quant:
             return _da.decode_query_attention_int8(
                 q, k_cache, v_cache, k_scale, v_scale, lengths,
@@ -173,7 +183,7 @@ def prefill_attention(q, k, v, *, window=GLOBAL, causal: bool = True,
     q (B, S, KV, G, dk), k (B, S, KV, dk), v (B, S, KV, dv) ->
     (B, S, KV, G, dv). `window` must be >= 1."""
     window = _pa.check_window(window)
-    if use_kernel(backend, q):
+    if use_kernel(backend, q, k, v):
         return _pa.prefill_attention(q, k, v, window=window, causal=causal)
     return ref.prefill_attention_ref(q, k, v, window=window, causal=causal)
 
@@ -181,7 +191,7 @@ def prefill_attention(q, k, v, *, window=GLOBAL, causal: bool = True,
 def expected_attention_scores(k_cache, mu, sig2, *, backend=None):
     """Expected-Attention keep-scores; k ([L,] B, S, KV, dk) with stats
     ([L,] KV, G, dk) -> ([L,] B, S, KV) float32, one launch on the card."""
-    if use_kernel(backend, k_cache):
+    if use_kernel(backend, k_cache, mu, sig2):
         return _ea.expected_attention_scores(k_cache, mu, sig2)
     return ref.expected_attention_scores_ref(k_cache, mu, sig2)
 
@@ -189,7 +199,7 @@ def expected_attention_scores(k_cache, mu, sig2, *, backend=None):
 def beta_incinv(a, b, q, *, backend=None):
     """x with I(x; a, b) = q (the regularized incomplete beta), float32,
     elementwise over the broadcast shape: a 60-step bisection."""
-    if use_kernel(backend, a):
+    if use_kernel(backend, a, b, q):
         return _bb.beta_incinv(a, b, q)
     return ref.betaincinv_ref(a, b, q)
 
@@ -199,6 +209,6 @@ def beta_incinv_grad_terms(a, b, x, *, backend=None):
     the betainc values at (a + ha, b), (a - ha, b), (a, b + hb),
     (a, b - hb) stacked on a leading axis of 4, pdf the Beta(a, b)
     density (x clamped to [1e-12, 1], pdf floored at 1e-30)."""
-    if use_kernel(backend, a):
+    if use_kernel(backend, a, b, x):
         return _bb.beta_incinv_grad_terms(a, b, x)
     return ref.betaincinv_grad_terms_ref(a, b, x)

@@ -13,6 +13,8 @@ conventions:
 GQA decode attention, and GQA full-sequence attention on the card, go
 through `kernels.ops`, which launches the hand-written CUDA kernels for
 CUDA tensors; hymba's attention heads are GQA and take the same route.
+The kernels have no backward: training takes the differentiable route
+(`differentiable=True`), the blocked `flash_attention` on any device.
 MLA attention, the MoE feed-forward and the SSM mixers (Mamba, RWKV6)
 are plain torch ops, as they are plain jnp in the JAX package (no Pallas
 kernel there); MLA's full-sequence attention is the blocked
@@ -136,14 +138,15 @@ def gqa_project_qkv(p, x, cfg: ModelConfig, positions):
 
 
 def gqa_attn_full(p, x, cfg: ModelConfig, window, positions, *,
-                  kernels=None):
+                  kernels=None, differentiable: bool = False):
     """Prefill path. Returns (attn_out, (k, v)). Where `kernels` selects
     the CUDA kernel for these tensors (`auto` or `cuda` on the card), the
-    attention is the hand-written prefill kernel; otherwise it is the
-    blocked `flash_attention`, the JAX package's own route."""
+    attention is the hand-written prefill kernel; otherwise, and always
+    on the differentiable route (training: the kernel has no backward),
+    it is the blocked `flash_attention`, the JAX package's own route."""
     q, k, v = gqa_project_qkv(p, x, cfg, positions)
     B, S = q.shape[:2]
-    if KOPS.use_kernel(kernels, q):
+    if not differentiable and KOPS.use_kernel(kernels, q, k, v):
         KV = cfg.n_kv_heads
         out = KOPS.prefill_attention(
             q.reshape(B, S, KV, cfg.n_heads // KV, cfg.d_head), k, v,
@@ -497,11 +500,13 @@ def mamba_mix_step(p, x, cfg: ModelConfig, conv_state, ssm_state):
 # ---------------------------------------------------------------------------
 
 def hymba_mix_full(p, x, cfg: ModelConfig, window, positions, *,
-                   kernels=None):
+                   kernels=None, differentiable: bool = False):
     """Prefill path: (out, (k, v), (conv_state, ssm_state)). The attention
-    heads go through `gqa_attn_full` (the prefill kernel on the card)."""
+    heads go through `gqa_attn_full` (the prefill kernel on the card, the
+    blocked attention on the differentiable route)."""
     attn_out, kv = gqa_attn_full(p["attn"], x, cfg, window, positions,
-                                 kernels=kernels)
+                                 kernels=kernels,
+                                 differentiable=differentiable)
     ssm_out, states = mamba_mix_full(p["ssm"], x, cfg)
     out = 0.5 * (rms_norm(attn_out, p["norm_attn"], cfg.norm_eps)
                  + rms_norm(ssm_out, p["norm_ssm"], cfg.norm_eps))

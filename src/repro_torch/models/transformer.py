@@ -41,10 +41,12 @@ states padded like the inputs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -360,13 +362,15 @@ def _mlp(p, h2, cfg: ModelConfig, B: Optional[int] = None):
     return L.pad_rows(L.moe_mlp(p["mlp"], h2[:B], cfg), R)
 
 
-def _mixer_full(p, h, cfg: ModelConfig, window: int, positions, kernels):
+def _mixer_full(p, h, cfg: ModelConfig, window: int, positions, kernels,
+                differentiable: bool = False):
     """One layer's token mixer over the full sequence: (out, its cache
     leaves by name)."""
     kind = cfg.attn_kind
     if kind == "gqa":
         out, (k, v) = L.gqa_attn_full(p["attn"], h, cfg, window, positions,
-                                      kernels=kernels)
+                                      kernels=kernels,
+                                      differentiable=differentiable)
         return out, {"k": k, "v": v}
     if kind == "mla":
         out, (c_kv, k_rope) = L.mla_attn_full(p["attn"], h, cfg, window,
@@ -374,21 +378,73 @@ def _mixer_full(p, h, cfg: ModelConfig, window: int, positions, kernels):
         return out, {"c_kv": c_kv, "k_rope": k_rope}
     if kind == "hymba":
         out, (k, v), (conv, ssm) = L.hymba_mix_full(
-            p["attn"], h, cfg, window, positions, kernels=kernels)
+            p["attn"], h, cfg, window, positions, kernels=kernels,
+            differentiable=differentiable)
         return out, {"k": k, "v": v, "conv": conv, "ssm": ssm}
     out, (wkv, tm_prev) = L.rwkv6_mix_full(p["attn"], h, cfg)
     return out, {"wkv": wkv, "tm_prev": tm_prev}
 
 
+def _layer_full(cfg: ModelConfig, p, x, window: int, positions, kernels,
+                differentiable: bool):
+    """One layer over the full sequence: (x, its cache leaves, h the
+    post-norm layer input)."""
+    h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    attn_out, leaves = _mixer_full(p, h, cfg, window, positions, kernels,
+                                   differentiable)
+    x = x + attn_out
+    h2 = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+    if cfg.attn_kind == "rwkv6":
+        x = x + L.rwkv_channel_mix(p["mlp"], h2, L._token_shift(h2))
+        leaves["cm_prev"] = h2[:, -1]
+    else:
+        x = x + _mlp(p, h2, cfg)
+    return x, leaves, h
+
+
+REMAT_POLICIES = ("none", "dots")
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy, the counterpart of JAX's
+    `dots_with_no_batch_dims_saveable`: keep the weight products
+    (`aten.mm`: every x @ W folds to one), recompute the rest, the
+    batched attention einsums (`aten.bmm`) included."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematted(layer, remat_policy: str):
+    """`layer` under activation checkpointing: "none" saves nothing and
+    recomputes the layer in the backward, "dots" saves its weight
+    products (a selective checkpoint)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; expected "
+                         f"one of {REMAT_POLICIES}")
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _saves_dots)
+
+    def run(*args):
+        return ckpt.checkpoint(layer, *args, use_reentrant=False, **kw)
+    return run
+
+
 def _trunk(params, cfg: ModelConfig, tokens=None, collect_cache: bool = False,
-           collect_hidden: bool = False, kernels=None, embeds=None):
+           collect_hidden: bool = False, kernels=None, embeds=None,
+           remat: bool = False, remat_policy: str = "none",
+           differentiable: bool = False):
     """Every layer over the full sequence. Returns (final-normed x,
     caches or None): the `cache_keys` leaves with collect_cache, "h" (the
     post-norm layer inputs) with collect_hidden, each stacked (L, B, ...).
     `kernels` selects the GQA attention route (kernels.ops backends): on
     the card under auto / cuda every GQA layer (hymba's attention heads
     too) launches the prefill kernel; MLA layers run the blocked
-    `flash_attention`, as the JAX package does."""
+    `flash_attention`, as the JAX package does. `differentiable` sends
+    every attention to the blocked `flash_attention` (the kernels have
+    no backward); `remat` checkpoints each layer under `remat_policy`."""
     x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -396,20 +452,16 @@ def _trunk(params, cfg: ModelConfig, tokens=None, collect_cache: bool = False,
     names = cache_keys(cfg)
     cols = {n: [] for n in names}
     hs = []
+
+    def layer(p, x, window):
+        return _layer_full(cfg, p, x, window, positions, kernels,
+                           differentiable)
+    if remat:
+        layer = _rematted(layer, remat_policy)
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
-        h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-        attn_out, leaves = _mixer_full(p, h, cfg, int(windows[i]), positions,
-                                       kernels)
+        x, leaves, h = layer(_layer(params["layers"], i), x, int(windows[i]))
         if collect_hidden:
             hs.append(h)          # post-norm layer input (EA calibration)
-        x = x + attn_out
-        h2 = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        if cfg.attn_kind == "rwkv6":
-            x = x + L.rwkv_channel_mix(p["mlp"], h2, L._token_shift(h2))
-            leaves["cm_prev"] = h2[:, -1]
-        else:
-            x = x + _mlp(p, h2, cfg)
         if collect_cache:
             for n in names:
                 cols[n].append(leaves[n])
@@ -435,11 +487,22 @@ def _state_dtype(name: str, dtype):
 
 def forward(params, cfg: ModelConfig, tokens=None,
             collect_cache: bool = False, collect_hidden: bool = False,
-            kernels=None, embeds=None):
+            kernels=None, embeds=None, remat: bool = False,
+            remat_policy: str = "none", differentiable: bool = False):
     """Full-sequence forward over `tokens` (B, S) or the frontend's
-    `embeds` (B, S, d). Returns (logits (B, S, V), caches or None)."""
+    `embeds` (B, S, d). Returns (logits (B, S, V), caches or None).
+
+    Training passes `differentiable=True`: GQA and hymba's attention
+    heads then take the blocked `flash_attention` (the JAX package's
+    route for this code) on any device, since the prefill kernel has no
+    backward (reached under autograd it raises). `remat` checkpoints
+    each layer (`torch.utils.checkpoint`, non-reentrant): policy "none"
+    saves nothing, "dots" the weight products, as the JAX package's
+    `nothing_saveable` / `dots_with_no_batch_dims_saveable`."""
     x, caches = _trunk(params, cfg, tokens, collect_cache, collect_hidden,
-                       kernels=kernels, embeds=embeds)
+                       kernels=kernels, embeds=embeds, remat=remat,
+                       remat_policy=remat_policy,
+                       differentiable=differentiable)
     return x @ _head(params, cfg), caches
 
 

@@ -1201,3 +1201,51 @@ def test_hymba_decode_flush_launches_b(gpu, quant):
         _bf16_close(gc[key], wc[key])
     del params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel cuts the graph
+# ---------------------------------------------------------------------------
+
+def test_kernels_under_autograd_raise_and_training_takes_the_blocked_route(
+        gpu):
+    """A GQA forward on the card with the default kernels, under autograd
+    with weights that require grad, raises (the prefill kernel has no
+    backward); under no_grad it still launches D. The differentiable
+    route (the blocked attention) gives wq / wk / wv non-zero grads within
+    1e-4 of the max of the CPU's on the same weights and tokens (float32
+    sums in another order), and launches no kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_map
+    cfg = get_config("granite-8b").reduced(dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    live = {**params, "layers": {**params["layers"], "attn": {
+        k: v.detach().requires_grad_(True)
+        for k, v in params["layers"]["attn"].items()}}}
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        forward(live, cfg, tokens=toks)
+    with torch.no_grad():
+        forward(live, cfg, tokens=toks)
+    assert ops.launch_counts()["prefill_attention"] \
+        == before["prefill_attention"] + cfg.n_layers
+    before = ops.launch_counts()
+    loss, grads, missing = value_and_grad(params, {"tokens": toks}, cfg,
+                                          remat=False)
+    assert ops.launch_counts() == before and missing == []
+    cpu = tree_map(lambda t: t.cpu(), params)
+    closs, cgrads, _ = value_and_grad(cpu, {"tokens": toks.cpu()}, cfg,
+                                      remat=False)
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for name in ("wq", "wk", "wv"):
+        g = grads["layers"]["attn"][name].cpu()
+        want = cgrads["layers"]["attn"][name]
+        assert float(g.abs().max()) > 0
+        assert float((g - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())

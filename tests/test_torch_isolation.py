@@ -32,7 +32,13 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.launch.remote_worker",
               "repro_torch.launch.serve", "repro_torch.launch.mesh",
               "repro_torch.distributed.sharding",
-              "repro_torch.configs.deepseek_v2_lite_16b"):
+              "repro_torch.configs.deepseek_v2_lite_16b",
+              "repro_torch.training", "repro_torch.training.optimizer",
+              "repro_torch.training.train_step",
+              "repro_torch.training.checkpoint",
+              "repro_torch.training.loop", "repro_torch.training.tree",
+              "repro_torch.data.pipeline", "repro_torch.launch.train",
+              "repro_torch.launch.specs"):
         assert m in mods
     # the lazy exports resolve too (a module path in a string is an import)
     code = (
