@@ -215,6 +215,27 @@ Phases, one JSON line each:
   train_loop  launch/train.main on the card (reduced granite, 4 steps),
            then run_training with a failure injected at step 7 and a
            resume from a checkpoint at step 8
+  dryrun_granite  the launch tooling, after every other phase: the host
+           cost of the wrappers' shape-only check; then `python -m
+           repro_torch.launch.dryrun --arch granite-8b --shape S` for
+           train_4k, prefill_32k and decode_32k at full width (36 layers),
+           started in the background (no card visible to them), each ok
+           on 256 devices priced at h100-sxm (reckoned figures: roofline,
+           per-device bytes, trace_s); meanwhile each cell from the dry
+           run's own build_cell cut to 2 of 36 layers (prefill B 1 of 32,
+           decode B 128 over a cache of random bf16 K / V full to 32768,
+           train B 2 of 256 with AdamW), traced on fake tensors by the op
+           counter and run on the card: the trace's kernel calls equal the
+           launches, its aten flops FlopCounterMode's within 1e-6, the
+           median step (CUDA events, 5 after a warm-up) is at least the
+           counter's roofline bound, and the counter's temp over the
+           step's measured transient (max_memory_allocated less
+           memory_allocated before the step) and the reckoned peak
+           (arguments + temp) over the measured one lie in 0.995-1.005;
+           kernel D at S 32768 (its last 256 query rows) and B at B 128 x
+           S 32768 (8 items) held to their plain versions within 2e-2 x
+           max |want|, a planted fault (D's key tile, B's split left out)
+           failing each hold, and timed beside SDPA
 The train phases launch none of A-E (a kernel reached under autograd
 raises: the kernels have no backward); each fails if a count moved.
 Every profile build (prefill and calibration) runs the prefill kernel D
@@ -230,7 +251,8 @@ read just after. The kernels line carries, per kernel, the sum of its
 counts over the Session paths (the quickstart query and the join, planted
 and 8B, with the scan legs and the hand-set join tree, the pools and the
 scheduler runs over them, the in-process remote paths with their workers'
-launches, and the serving launcher), and each path's count; D appears once per body (prefill_attention_tc, _fma), with that
+launches, the serving launcher, and dryrun_granite's cut cells), and
+each path's count; D appears once per body (prefill_attention_tc, _fma), with that
 body's counts; E once per entry (beta_incinv, beta_incinv_grad_terms),
 counting each launch a CUDA-graph replay makes, and its bound_ms is one
 FMA latency (4 cycles at 1.98 GHz) per continued-fraction term of its
@@ -253,10 +275,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 WORK = os.path.join(HERE, "build", "chip_smoke")
+if os.path.isdir(os.path.join(SRC, "repro_torch")):   # else main() stops
+    sys.path.insert(0, SRC)
+    # the H100 SXM peaks (launch/mesh.H100_SXM) and each kernel's bound
+    from repro_torch.kernels.cost import (  # noqa: E402
+        PEAK_BF16_TC_FLOPS, bound, decode_bound, decode_visible,
+        expected_attention_work, prefill_bound)
 
-PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
-PEAK_BF16_TC_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense
 GLOBAL = 1 << 30
 DEV = "cuda"                  # the card (the CPU only to rehearse a phase)
 
@@ -301,60 +326,6 @@ def time_ms(torch, fn, flush, iters=20, warmup=3, mode="write") -> float:
     torch.cuda.synchronize()
     t = sorted(s.elapsed_time(e) for s, e in evs)
     return t[len(t) // 2]
-
-
-def bound(nbytes: float, flops: float, dtype):
-    """The larger of the bytes over the memory rate and the flops over the
-    card's peak rate for the operands' type: the bf16 tensor cores for
-    bfloat16 operands (their products are exact in float32 accumulation,
-    so a float32 reference on them fits that rate), float32 outside the
-    tensor cores for float32 operands."""
-    peak = PEAK_BF16_TC_FLOPS if dtype.itemsize == 2 else PEAK_F32_FLOPS
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def decode_bound(q, k, v, lengths, window, scale_bytes=0):
-    """Least time for a decode call on these inputs: the visible K/V rows
-    (positions below each item's length inside some row's window) read
-    once, with `scale_bytes` per visible (position, head) of dequantisation
-    scales (8 for int8 K and V: two float32), q read and the output written
-    once; 4 flops per query row per K or V element of a visible row, at
-    the rate for q's type."""
-    B, Lq, KV, G, dk = q.shape if q.dim() == 5 else \
-        (q.shape[0], 1) + tuple(q.shape[1:])
-    S, dv = v.shape[1], v.shape[3]
-    vis = 0
-    for n in lengths.tolist():
-        hi = min(n, S)
-        lo = max(0, n - Lq - window + 1)
-        vis += max(0, hi - lo)
-    nbytes = (vis * KV * ((dk + dv) * k.element_size() + scale_bytes)
-              + q.numel() * q.element_size() * (1 + dv / dk) + 4 * B)
-    flops = vis * KV * Lq * G * 2 * (dk + dv)
-    return bound(nbytes, flops, q.dtype)
-
-
-def prefill_live_pairs(S, window, causal) -> int:
-    """(query, key) position pairs the mask admits, per (item, KV head)."""
-    live = 0
-    for i in range(S):
-        lo = max(0, i - window + 1)
-        live += (i + 1 if causal else S) - lo
-    return live
-
-
-def prefill_bound(q, k, v, window, causal):
-    """Least time for a prefill-attention call on these inputs: q, k, v
-    read once and the output written once; 2 (dk + dv) flops per query
-    row per live key, at the rate for the inputs' type. Also the time of
-    the same flops as float32 FMAs, the way the kernel does them."""
-    B, S, KV, G, dk = q.shape
-    dv = v.shape[-1]
-    esz = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + B * S * KV * G * dv) * esz
-    flops = B * KV * G * prefill_live_pairs(S, window, causal) * 2 * (dk + dv)
-    return bound(nbytes, flops, q.dtype) + (flops / PEAK_F32_FLOPS * 1e3,)
 
 
 # --------------------------------------------------------------------------
@@ -488,8 +459,11 @@ def phase_kernels(torch, flush):
                     row["plain_ms"] = time_ms(
                         torch, lambda: plain(lengths, window), flush,
                         iters=5)
+                    row["visible_rows"] = decode_visible(
+                        lengths.tolist(), S, 1, window)
                     row["bound_ms"], row["bound_by"] = decode_bound(
-                        qq, kk, vv, lengths, window, 8 if quant else 0)
+                        qq, kk, vv, lengths.tolist(), window,
+                        8 if quant else 0)
                     row["library_ms"] = row["library_ms_read"] = None
                     if not quant:
                         # yardstick: one SDPA call on head-expanded K/V
@@ -592,13 +566,13 @@ def _ea_cases(torch, gen, flush):
         row["kernel_ms"] = time_ms(torch, kern, flush)
         row["kernel_ms_read"] = time_ms(torch, kern, flush, mode="read")
         row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
-        nbytes = (k.numel() * k.element_size()
-                  + 2 * mu.numel() * mu.element_size() + got.numel() * 4)
-        # the least work: mean_g is linear, so the stats reduce over g
-        # once (2 flops per stats element) and a K element takes two FMAs
-        # (4 flops), at the float32 rate
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, k.numel() * 4 + 2 * mu.numel() * 2, torch.float32)
+        # the least work (kernels/cost.py): the stats reduce over g once,
+        # a K element takes two FMAs, at the float32 rate
+        flops, nbytes = expected_attention_work(
+            k.numel(), k.element_size(), mu.numel(), mu.element_size(),
+            got.numel())
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                 torch.float32)
         row["library_ms"] = row["library_ms_read"] = None
         out.append(row)
         emit("kernel", **row)
@@ -4875,6 +4849,481 @@ def phase_train_loop(torch):
          resumed_vs_uninterrupted_max_abs=diff)
 
 
+# --------------------------------------------------------------------------
+# the launch tooling: granite-8b's dry-run cells, reckoned and run
+# --------------------------------------------------------------------------
+
+DRYRUN_ARCH = "granite-8b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_LAYERS = 2                        # of 36
+DRYRUN_BATCH = {"train_4k": 2, "prefill_32k": 1, "decode_32k": 128}
+DRYRUN_REPS = 5                          # timed steps, after one warm-up
+DRYRUN_TIMEOUT = 900                     # s, for the full-width dry runs
+FLOPS_RTOL = 1e-6                        # the counter's vs FlopCounterMode's
+# reckoned / measured, for the step's transient (the counter's temp
+# against max_memory_allocated less memory_allocated before the step) and
+# for the whole peak (arguments + temp); the card's readings were within
+# 1.5e-3 of 1 (decode_32k's transient)
+PEAK_BAND = (0.995, 1.005)
+HOLD_ROWS = 256                          # D at S 32768: its last query rows
+HOLD_ITEMS = 8                           # B at B 128: its first items
+# D at S 32768, B at S 32768: max |got - want| <= HOLD_RTOL x max |want|.
+# The outputs are softmax means over 32k keys, about 1e-2, so the limit
+# scales with them: about 2.5 bf16 ulps of the largest output
+HOLD_RTOL = 2e-2
+CHILDREN = []                            # background processes; main stops
+
+
+def start_dryruns():
+    """`python -m repro_torch.launch.dryrun` for granite-8b's three cells
+    at full width (36 layers), started in the background with no card
+    visible: a dry run touches no device. They run
+    beside `phase_dryrun_granite`'s card work only, whose times are CUDA
+    events; every earlier phase has ended. Each writes its record under
+    WORK."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for shape in DRYRUN_SHAPES:
+        out = os.path.join(WORK, f"dryrun_{shape}.json")
+        with open(out, "w") as fo, open(out + ".err", "w") as fe:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 DRYRUN_ARCH, "--shape", shape], stdout=fo, stderr=fe,
+                env=env, cwd=HERE)
+        CHILDREN.append(p)
+        procs[shape] = (p, out)
+    return procs
+
+
+def _dryrun_records(procs):
+    """Each full-width record: ok, on 256 devices, priced at h100-sxm."""
+    recs = {}
+    for shape, (p, out) in procs.items():
+        try:
+            p.wait(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            die("dryrun_granite", f"the {shape} dry run ran over "
+                                  f"{DRYRUN_TIMEOUT} s")
+        with open(out + ".err") as f:
+            err = f.read()[-2000:]
+        if p.returncode != 0:
+            die("dryrun_granite", f"the {shape} dry run exited "
+                                  f"{p.returncode}: {err}")
+        with open(out) as f:
+            rec = json.load(f)
+        if not (rec.get("ok") and rec.get("n_devices") == 256
+                and rec.get("peaks") == "h100-sxm"
+                and rec.get("n_layers") == 36):
+            die("dryrun_granite", f"the {shape} record: ok "
+                                  f"{rec.get('ok')}, n_devices "
+                                  f"{rec.get('n_devices')}, peaks "
+                                  f"{rec.get('peaks')}, "
+                                  f"{rec.get('error')}")
+        emit("dryrun_record", ok=True, arch=DRYRUN_ARCH, shape=shape,
+             n_devices=rec["n_devices"], peaks=rec["peaks"],
+             mesh=rec["mesh"], trace_s=rec["trace_s"],
+             roofline=rec["roofline"],
+             per_device_bytes=rec["per_device_bytes"],
+             flops_per_dev=rec["flops_per_dev"],
+             bytes_per_dev=rec["bytes_per_dev"],
+             useful_flops_ratio=rec["useful_flops_ratio"],
+             kernel_calls=rec["kernel_calls"],
+             microbatches=rec["microbatches"], reckoned=True)
+        recs[shape] = rec
+    return recs
+
+
+def _dryrun_cut(shape_name):
+    """(cfg, shape, fn, args stand-ins) of the cell from the dry run's own
+    build_cell, cut to DRYRUN_LAYERS layers and DRYRUN_BATCH items."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH),
+                              n_layers=DRYRUN_LAYERS)
+    full = SHAPES[shape_name]
+    shape = ShapeConfig(full.name, full.seq_len, DRYRUN_BATCH[shape_name],
+                        full.kind)
+    fn, sds, _, _ = D.build_cell(cfg, shape, make_production_mesh())
+    return cfg, shape, fn, sds
+
+
+def _dryrun_args(torch, cfg, shape):
+    """Real arguments of the cut cell on the card: seeded random weights
+    (and AdamW state), random tokens, and for decode a cache of random
+    bf16 K / V with every item at length S - 1 (the new token's K / V go
+    to position S - 1, and every row is then visible)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.training.optimizer import adamw_init
+    g = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(cfg, g, device=DEV)
+    B, S = shape.global_batch, shape.seq_len
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, 1 if shape.kind == "decode" else S),
+        generator=g, device=DEV, dtype=torch.int32)}
+    if shape.kind == "train":
+        return (params, adamw_init(params), batch)
+    if shape.kind == "prefill":
+        return (params, batch)
+    cache = init_cache(cfg, B, S, device=DEV)
+    for name in ("k", "v"):
+        cache[name].normal_(generator=g)
+    cache["lengths"].fill_(S - 1)
+    return (params, cache, batch)
+
+
+def _launch_delta(before, after):
+    return {k: after[k] - before[k] for k in after
+            if not isinstance(after[k], dict) and after[k] != before[k]}
+
+
+def _dryrun_cell_run(torch, shape_name):
+    """The cut cell: a fake trace (the op counter) and the real step on
+    the card. Fails unless the trace's kernel calls equal the real step's
+    launches, its aten flops equal FlopCounterMode's on the real step
+    within FLOPS_RTOL, the median step (CUDA events) is at least the
+    counter's roofline bound, and the reckoned peak (arguments + temp)
+    over the measured one, and the counter's temp over the step's measured
+    transient, lie in PEAK_BAND. Returns (row, launches on the
+    path, the real arguments)."""
+    import contextlib
+    import statistics
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import H100_SXM
+    from repro_torch.launch.specs import tree_bytes
+    from repro_torch.training.tree import leaves
+    phase = "dryrun_granite"
+    cfg, shape, fn, sds = _dryrun_cut(shape_name)
+    tr = D.trace_cell(fn, sds, "cpu" if shape.kind == "train" else "cuda")
+    args = _dryrun_args(torch, cfg, shape)
+    layout = [(tuple(t.shape), t.dtype) for t in leaves(args)]
+    if layout != [(tuple(t.shape), t.dtype) for t in leaves(sds)]:
+        die(phase, f"{shape_name}: the real arguments differ from the "
+                   f"cell's stand-ins")
+    arg_bytes = sum(tree_bytes(a) for a in sds)
+    grad = shape.kind == "train"
+
+    def step():
+        with (contextlib.nullcontext() if grad else torch.no_grad()):
+            return fn(*args)
+    start = ops.launch_counts()
+    out = step()                                  # warm-up
+    torch.cuda.synchronize()
+    del out
+    before = ops.launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        out = step()
+    torch.cuda.synchronize()
+    launched = _launch_delta(before, ops.launch_counts())
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - resident
+    peak = arg_bytes + transient
+    del out
+    times = []
+    for _ in range(DRYRUN_REPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = step()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        del out
+    end = ops.launch_counts()
+    path = _launch_delta(start, end)
+    by_body = {b: end["prefill_attention_by_body"][b]
+               - start["prefill_attention_by_body"][b]
+               for b in start["prefill_attention_by_body"]}
+    ms = statistics.median(times)
+    calls = {k: v["calls"] for k, v in tr["kernel_calls"].items()}
+    real_flops = fc.get_total_flops()
+    rel = abs(tr["aten_flops"] - real_flops) / max(real_flops, 1)
+    t_compute = tr["flops"] / H100_SXM.flops * 1e3
+    t_memory = tr["bytes"] / H100_SXM.hbm_bw * 1e3
+    bound_ms = max(t_compute, t_memory)
+    reckoned = arg_bytes + tr["peak_bytes"]
+    row = dict(shape=shape_name, n_layers=cfg.n_layers, of_layers=36,
+               batch=shape.global_batch, seq=shape.seq_len,
+               cut=f"depth {cfg.n_layers} of 36; batch "
+                   f"{shape.global_batch} of "
+                   f"{SHAPES[shape_name].global_batch}",
+               step_ms=ms, step_ms_all=times, kernel_calls=calls,
+               launches=launched, trace_s=tr["trace_s"],
+               counter_aten_flops=tr["aten_flops"],
+               flop_counter_mode_flops=real_flops, flops_rel_err=rel,
+               counter_flops=tr["flops"], counter_bytes=tr["bytes"],
+               bound_ms=bound_ms,
+               bound_by="operations" if t_compute >= t_memory else "bytes",
+               share=bound_ms / ms, reckoned_peak_gb=reckoned / 1e9,
+               arguments_gb=arg_bytes / 1e9,
+               temp_gb=tr["peak_bytes"] / 1e9, measured_peak_gb=peak / 1e9,
+               measured_transient_gb=transient / 1e9,
+               temp_ratio=tr["peak_bytes"] / transient,
+               peak_ratio=reckoned / peak, peak_band=PEAK_BAND,
+               path_launches=path, prefill_by_body=by_body)
+    fails = []
+    if calls != launched:
+        fails.append(f"kernel calls {calls} != launches {launched}")
+    if rel > FLOPS_RTOL:
+        fails.append(f"aten flops {tr['aten_flops']} vs FlopCounterMode "
+                     f"{real_flops} (rel {rel})")
+    if not bound_ms <= ms:
+        fails.append(f"step {ms} ms under the bound {bound_ms} ms")
+    for ratio in ("temp_ratio", "peak_ratio"):
+        if not PEAK_BAND[0] <= row[ratio] <= PEAK_BAND[1]:
+            fails.append(f"{ratio} {row[ratio]} outside {PEAK_BAND}")
+    row["ok"] = not fails
+    emit("dryrun_cut", **row)
+    if fails:
+        die(phase, f"{shape_name}: " + "; ".join(fails))
+    return row, path, by_body, args, cfg
+
+
+def _hold(got, want):
+    """(max |got - want|, the limit HOLD_RTOL x max |want|, max |want|)."""
+    top = float(want.float().abs().max())
+    return (float((got.float() - want.float()).abs().max()),
+            HOLD_RTOL * top, top)
+
+
+def _without(torch, ts, lo, n):
+    """Each (B, S, ...) tensor of `ts` without positions [lo, lo + n)."""
+    return [torch.cat([t[:, :lo], t[:, lo + n:]], 1) for t in ts]
+
+
+def _dryrun_d_row(torch, flush, cfg, S):
+    """Kernel D at granite's prefill_32k item: B 1, S 32768, KV 8, G 4,
+    d 128, causal, bf16. Its plain version would build 137 GB of float32
+    scores, so the last HOLD_ROWS query rows are held against all keys
+    with the plain version on that slice (the fused-query decode's plain
+    version: rows at lengths - Lq + r, causal). A planted fault must fail
+    the hold: the plain version with one of D's key tiles (64 positions,
+    at S / 2) left out of every held row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=DEV).manual_seed(7)
+    KV, dh = cfg.n_kv_heads, cfg.d_head
+    G = cfg.n_heads // KV
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+    q, k, v = rnd(1, S, KV, G, dh), rnd(1, S, KV, dh), rnd(1, S, KV, dh)
+    lengths = torch.full((1,), S, dtype=torch.int32, device=DEV)
+    qs = q[:, -HOLD_ROWS:].contiguous()
+
+    def kern():
+        return PA.prefill_attention(q, k, v, window=GLOBAL, causal=True)
+
+    def plain():
+        return ref.decode_query_attention_ref(qs, k, v, lengths,
+                                              window=GLOBAL)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, tol, top = _hold(got[:, -HOLD_ROWS:], want)
+    kd, vd = _without(torch, (k, v), S // 2, 64)
+    fault = ref.decode_query_attention_ref(qs, kd, vd, lengths - 64,
+                                           window=GLOBAL)
+    fault_err = _hold(fault, want)[0]
+    del kd, vd, fault
+    row = dict(kernel="prefill_attention", body=PA.body(q.dtype, dh, dh),
+               shape=f"granite-prefill-S{S}", B=1, S=S, KV=KV, G=G, dk=dh,
+               dv=dh, dtype="bfloat16", window=GLOBAL, causal=True,
+               max_abs_err=err, tol=tol, tol_rule=f"{HOLD_RTOL} x max|want|",
+               max_abs_want=top,
+               held=f"the last {HOLD_ROWS} query rows against all keys",
+               planted_fault=f"key tile [{S // 2}, {S // 2 + 64}) left out",
+               planted_fault_err=fault_err,
+               main_path_shape=False, dryrun_path_shape=True,
+               ok=bool(err <= tol and math.isfinite(err)
+                       and fault_err > tol))
+    row["kernel_ms"] = time_ms(torch, kern, flush, iters=10)
+    row["kernel_ms_read"] = time_ms(torch, kern, flush, iters=10,
+                                    mode="read")
+    row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
+    row["plain_scope"] = f"the held {HOLD_ROWS} rows"
+    row["bound_ms"], row["bound_by"], row["f32_fma_ms"] = prefill_bound(
+        q, k, v, GLOBAL, True)
+    qh = q.reshape(1, S, KV * G, dh).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    row["library_ms"] = time_ms(torch, sdpa, flush, iters=10)
+    row["library_ms_read"] = time_ms(torch, sdpa, flush, iters=10,
+                                     mode="read")
+    emit("kernel", **row)
+    if not row["ok"]:
+        die("kernel", f"prefill_attention at S {S}: error {err} on the "
+                      f"last {HOLD_ROWS} rows, the planted fault's "
+                      f"{fault_err}, limit {tol}")
+    return row
+
+
+def _dryrun_b_row(torch, flush, cfg, cache):
+    """Kernel B at granite's decode_32k step on the cut run's own cache
+    (layer 0: B 128, S 32768, KV 8, G 4, d 128, bf16, every row visible).
+    Its plain version makes float32 copies of the whole K / V (34 GB), so
+    it is held on the first HOLD_ITEMS items: both are batch-invariant. A
+    planted fault must fail the hold: the plain version with one of B's
+    splits (128 positions, at S / 2) left out."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    k, v = cache["k"][0], cache["v"][0]
+    B, S, KV, dh = k.shape
+    G = cfg.n_heads // KV
+    g = torch.Generator(device=DEV).manual_seed(8)
+    q = torch.randn((B, KV, G, dh), generator=g, device=DEV).to(
+        torch.bfloat16)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    n = HOLD_ITEMS
+
+    def kern():
+        return DA.decode_attention(q, k, v, lengths)
+
+    def plain():
+        return ref.decode_attention_ref(q[:n], k[:n], v[:n], lengths[:n])
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, tol, top = _hold(got[:n], want)
+    kd, vd = _without(torch, (k[:n], v[:n]), S // 2, 128)
+    fault = ref.decode_attention_ref(q[:n], kd, vd, lengths[:n] - 128)
+    fault_err = _hold(fault, want)[0]
+    del kd, vd, fault
+    row = dict(kernel="decode_attention", shape=f"granite-decode-B{B}-S{S}",
+               B=B, Lq=1, KV=KV, G=G, dk=dh, S=S, dtype="bfloat16",
+               kv_dtype="bfloat16", window=GLOBAL, max_abs_err=err,
+               tol=tol, tol_rule=f"{HOLD_RTOL} x max|want|", max_abs_want=top,
+               held=f"the first {n} of {B} items",
+               planted_fault=f"split [{S // 2}, {S // 2 + 128}) left out",
+               planted_fault_err=fault_err,
+               main_path_shape=False, dryrun_path_shape=True,
+               ok=bool(err <= tol and math.isfinite(err)
+                       and fault_err > tol))
+    row["kernel_ms"] = time_ms(torch, kern, flush, iters=10)
+    row["kernel_ms_read"] = time_ms(torch, kern, flush, iters=10,
+                                    mode="read")
+    row["plain_ms"] = time_ms(torch, plain, flush, iters=5)
+    row["plain_scope"] = f"the held {n} items"
+    row["visible_rows"] = B * S
+    row["bound_ms"], row["bound_by"] = decode_bound(q, k, v, [S] * B,
+                                                    GLOBAL)
+    qh = q.reshape(B, KV * G, 1, dh)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
+    row["library_ms"] = time_ms(torch, sdpa, flush, iters=10)
+    row["library_ms_read"] = time_ms(torch, sdpa, flush, iters=10,
+                                     mode="read")
+    emit("kernel", **row)
+    if not row["ok"]:
+        die("kernel", f"decode_attention at B {B} x S {S}: error {err} on "
+                      f"{n} items, the planted fault's {fault_err}, limit "
+                      f"{tol}")
+    return row
+
+
+def _fake_route_cost(torch):
+    """Host ns per call that the shape-only route's check adds to every
+    kernel call on a real tensor, and a B call's whole host time (us, the
+    planted flush's shape, no sync) for scale."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import decode_attention as DA
+    x = torch.zeros(8, device=DEV)
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cost.is_fake(x)
+    check_ns = (time.perf_counter() - t0) / n * 1e9
+    q = torch.randn((16, 2, 1, 16), device=DEV)
+    k = torch.randn((16, 256, 2, 16), device=DEV)
+    lengths = torch.full((16,), 200, dtype=torch.int32, device=DEV)
+    DA.decode_attention(q, k, k, lengths)
+    torch.cuda.synchronize()
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        DA.decode_attention(q, k, k, lengths)
+    call_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return check_ns, call_us, reps + 1
+
+
+def phase_dryrun_granite(torch, smi_line):
+    """granite-8b's prefill_32k, decode_32k and train_4k: each cell cut to
+    2 of 36 layers (prefill B 1 of 32, decode B 128, train B 2 of 256 with
+    AdamW) traced by the op counter and run on the card, held to each
+    other; kernel D at S 32768 and kernel B at B 128 x S 32768 against
+    their plain versions; and the full-width dry-run records, which run in
+    the background meanwhile (`start_dryruns`, after the fake route's host
+    cost is measured). Returns (launches on the path, kernel rows)."""
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("dryrun_granite_memory", allocated_gb=_mem_gb(torch))
+    t0 = time.perf_counter()
+    check_ns, call_us, fake_calls = _fake_route_cost(torch)  # off the path
+    procs = start_dryruns()
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    path = dict.fromkeys(ops.KERNELS, 0)
+    by_body = {"tc": 0, "fma": 0}
+    cuts, rows = {}, {"decode_attention": [], "prefill_attention": []}
+    for shape in ("prefill_32k", "decode_32k", "train_4k"):
+        row, launched, bodies, args, cfg = _dryrun_cell_run(torch, shape)
+        cuts[shape] = row
+        for k, n in launched.items():
+            path[k] += n
+        for b, n in bodies.items():
+            by_body[b] += n
+        if shape == "prefill_32k":
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows["prefill_attention"].append(
+                _dryrun_d_row(torch, flush, cfg, row["seq"]))
+        elif shape == "decode_32k":
+            rows["decode_attention"].append(
+                _dryrun_b_row(torch, flush, cfg, args[1]))
+        args = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    del flush
+    t_wait = time.perf_counter()
+    recs = _dryrun_records(procs)
+    wait_s = time.perf_counter() - t_wait
+    path["prefill_attention_by_body"] = by_body
+    emit("dryrun_granite", ok=True, arch=DRYRUN_ARCH, card=smi_line,
+         records={s: {"trace_s": r["trace_s"], "roofline": r["roofline"],
+                      "per_device_bytes": r["per_device_bytes"]}
+                  for s, r in recs.items()},
+         waited_for_records_s=wait_s,
+         cuts={s: {k: r[k] for k in ("step_ms", "bound_ms", "bound_by",
+                                     "share", "temp_ratio", "peak_ratio",
+                                     "kernel_calls", "flops_rel_err")}
+               for s, r in cuts.items()},
+         fake_check_ns_per_call=check_ns, decode_call_host_us=call_us,
+         fake_cost_calls_not_on_path=fake_calls,
+         seconds=time.perf_counter() - t0,
+         path_launches={k: v for k, v in path.items() if v})
+    return path, rows
+
+
 KERNEL_META = {
     "decode_query_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:185"),
@@ -4908,7 +5357,7 @@ PREFILL_BODIES = {
 
 # bfloat16 paths besides the 8B ones: D's tensor-core body only
 BF16_PATHS = ("session_deepseek", "session_hymba", "session_rwkv6",
-              "zoo_legs")
+              "zoo_legs", "dryrun_granite")
 
 
 def _check_prefill_bodies(paths):
@@ -4939,8 +5388,9 @@ def _timing(row):
 
 def _kernel_entry(name, source, replaces, rows, launches_by_path):
     """One kernel's entry of the kernels line: its row at the main path's
-    shape, and (B, C, D's tensor-core body) its row at the hymba
-    Session's shape under "hymba"."""
+    shape, (B, C, D's tensor-core body) its row at the hymba Session's
+    shape under "hymba", and (B, D's tensor-core body) its row at
+    granite-8b's dry-run cell under "dryrun_granite"."""
     row = [r for r in rows if r.get("main_path_shape")][0]
     if sum(launches_by_path.values()) <= 0:
         die("kernels", f"{name} was launched on no Session path")
@@ -4953,6 +5403,10 @@ def _kernel_entry(name, source, replaces, rows, launches_by_path):
     hymba = [r for r in rows if r.get("hymba_path_shape")]
     if hymba:
         entry["hymba"] = {"shape": hymba[0]["shape"], **_timing(hymba[0])}
+    dry = [r for r in rows if r.get("dryrun_path_shape")]
+    if dry:
+        entry["dryrun_granite"] = {"shape": dry[0]["shape"],
+                                   **_timing(dry[0])}
     return entry
 
 
@@ -4961,7 +5415,6 @@ def main() -> int:
         print("chip_smoke.py: src/repro_torch not found next to this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; the port's path runs "
@@ -5018,7 +5471,15 @@ def main() -> int:
         phase_train_zoo(torch)
         phase_train_loop(torch)
         rows.update(phase_planner(torch, problems))
+        paths["dryrun_granite"], dry_rows = phase_dryrun_granite(torch,
+                                                                 smi_line)
+        for name, extra in dry_rows.items():
+            rows[name] = rows[name] + extra
     finally:
+        for p in CHILDREN:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
         shutil.rmtree(WORK, ignore_errors=True)
     session_paths = {p: c for p, c in paths.items() if p != "llama8b"}
     kernels = [_kernel_entry(name, source, replaces, rows[name],

@@ -8,7 +8,8 @@ from repro_torch.configs import (dbrx_132b, deepseek_v2_lite_16b, gemma3_27b,
                                  rwkv6_1p6b, stretto_llama_8b)
 from repro_torch.configs.base import (ALL_SHAPES, SHAPES, MLAConfig,
                                       ModelConfig, MoEConfig, ShapeConfig,
-                                      SSMConfig)
+                                      SSMConfig, applicable_shapes,
+                                      supports_long_context)
 
 REGISTRY = {
     m.CONFIG.name: m.CONFIG
@@ -29,4 +30,5 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "REGISTRY",
-           "ASSIGNED", "get_config", "ShapeConfig", "SHAPES", "ALL_SHAPES"]
+           "ASSIGNED", "get_config", "ShapeConfig", "SHAPES", "ALL_SHAPES",
+           "applicable_shapes", "supports_long_context"]

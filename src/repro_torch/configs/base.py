@@ -164,6 +164,15 @@ class ModelConfig:
         return n + L * per_layer
 
     @property
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only top_k + shared experts)."""
+        if not self.is_moe:
+            return self.n_params
+        e = self.moe
+        inactive = (e.n_experts - e.top_k) * 3 * self.d_model * e.d_ff_expert
+        return self.n_params - self.n_layers * inactive
+
+    @property
     def d_ff_channel_mix(self) -> int:
         return self.d_ff
 
@@ -187,3 +196,21 @@ LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
 
 ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """long_500k is only runnable for sub-quadratic archs (SSM/hybrid/local)."""
+    if cfg.attn_kind in ("rwkv6", "hymba"):
+        return True
+    if cfg.global_every or cfg.window:   # local:global (gemma3)
+        return True
+    return False
+
+
+def applicable_shapes(cfg: ModelConfig):
+    out = []
+    for s in ALL_SHAPES:
+        if s.name == "long_500k" and not supports_long_context(cfg):
+            continue
+        out.append(s)
+    return tuple(out)

@@ -32,6 +32,10 @@ launch leaves it at zero. dk and dv are at most 256.
 
 Every wrapper takes CUDA tensors only and launches the kernel; the plain
 versions in `kernels/ref.py` serve CPU tensors (see `kernels/ops.py`).
+CUDA tensors without storage (`FakeTensor`s, a dry run's trace) get
+their output and scratch allocated and the call reported to
+`kernels/cost.py`, with every cache row priced as visible (a fake
+`lengths` cannot be read); nothing is built or launched for them.
 The source header says what bounds the kernels on the H100 and how the
 design meets it. Each wrapper counts its launches in `.launches`.
 """
@@ -42,7 +46,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import GLOBAL
 
 SPLIT = 128           # cache positions per split
@@ -148,6 +152,19 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _shape_only(fn, out, q, k, v, window, scale_bytes=0):
+    """The call on fake tensors: report its work (every cache row
+    visible) and return the allocated output."""
+    B, KV, G, dk = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
+    Lq = q.shape[1] if q.dim() == 5 else 1
+    S, dv = v.shape[1], v.shape[3]
+    flops, nbytes = cost.decode_work(B, Lq, KV, G, dk, dv, S, [S] * B,
+                                     _window(window), q.element_size(),
+                                     k.element_size(), scale_bytes)
+    cost.report(fn.__name__, flops, nbytes)
+    return out
+
+
 def decode_query_attention(q, k_cache, v_cache, lengths, *,
                            window=GLOBAL) -> torch.Tensor:
     """Fused multi-token query decode on the card; (B, Lq, KV, G, dk) ->
@@ -158,6 +175,8 @@ def decode_query_attention(q, k_cache, v_cache, lengths, *,
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, Lq, KV, G, dv), dtype=q.dtype, device=q.device)
     pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device)
+    if cost.is_fake(q):
+        return _shape_only(decode_query_attention, out, q, k, v, window)
     arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_query_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
@@ -180,6 +199,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, KV, G, dv), dtype=q.dtype, device=q.device)
     pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device)
+    if cost.is_fake(q):
+        return _shape_only(decode_attention, out, q, k, v, window)
     arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
@@ -204,6 +225,9 @@ def decode_query_attention_int8(q, k_cache, v_cache, k_scale, v_scale,
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, Lq, KV, G, dv), dtype=q.dtype, device=q.device)
     pm, pl, pacc = _scratch(B, KV, S, Lq * G, dv, q.device)
+    if cost.is_fake(q):
+        return _shape_only(decode_query_attention_int8, out, q, k, v,
+                           window, 8)
     arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_query_attention_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
@@ -226,6 +250,9 @@ def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, lengths, *,
     S, dv = v.shape[1], v.shape[3]
     out = torch.empty((B, KV, G, dv), dtype=q.dtype, device=q.device)
     pm, pl, pacc = _scratch(B, KV, S, G, dv, q.device)
+    if cost.is_fake(q):
+        return _shape_only(decode_attention_int8, out, q, k, v,
+                           window, 8)
     arrivals = _arrival_counters(B * KV, q.device)
     err = _lib().stretto_decode_attention_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),

@@ -13,7 +13,9 @@ dk), float32 or bfloat16, read in their own type -> (L, B, S, KV)
 float32. Without the leading layer axis ((B, S, KV, dk) and (KV, G, dk))
 the result is (B, S, KV). One call is one launch, whatever L and B are.
 CUDA tensors only; the plain version in `kernels/ref.py` serves CPU
-tensors (see `kernels/ops.py`). Launches are counted in
+tensors (see `kernels/ops.py`); CUDA tensors without storage
+(`FakeTensor`s) get their output and a report to `kernels/cost.py`, and
+no launch. Launches are counted in
 `expected_attention_scores.launches`.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import ea_factors
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,6 +82,12 @@ def expected_attention_scores(k_cache, mu, sig2) -> torch.Tensor:
         k = k.contiguous()
     mu, sig2 = mu.contiguous(), sig2.contiguous()
     out = torch.empty((L, B, S, KV), dtype=torch.float32, device=k.device)
+    if cost.is_fake(k):
+        flops, nbytes = cost.expected_attention_work(
+            k.numel(), k.element_size(), mu.numel(), mu.element_size(),
+            out.numel())
+        cost.report(what, flops, nbytes)
+        return out if layered else out[0]
     fa, fc = ea_factors(dk, G)
     err = _lib().stretto_expected_attention_scores(
         k.data_ptr(), mu.data_ptr(), sig2.data_ptr(), out.data_ptr(), L, B,

@@ -11,7 +11,10 @@ Every wrapper takes `backend`, one of:
 read at call time so tests and deployments can flip it without
 reimporting. A CUDA tensor under `auto` or `cuda` always launches the
 kernel: a failed build or launch raises, and nothing falls back to the
-plain version.
+plain version. A fake CUDA tensor (shape and dtype, no storage: a dry
+run's trace, `launch/op_count.fake_cuda`) takes the same route to the
+kernel's wrapper, which allocates the output, reports the call's work
+to `kernels/cost.py` and builds and launches nothing.
 
 int8 KV caches (with per-token scales) launch the int8 CUDA kernels,
 which dequantise in the kernel; the plain versions dequantise up front.

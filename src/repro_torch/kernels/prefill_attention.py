@@ -27,7 +27,9 @@ body's blocked algorithm has a CPU twin,
 `kernels/ref.prefill_attention_tc_twin`, for the tests.
 
 CUDA tensors only; the plain version `kernels/ref.prefill_attention_ref`
-serves CPU tensors (see `kernels/ops.py`). Launches are counted in
+serves CPU tensors (see `kernels/ops.py`). CUDA tensors without storage
+(`FakeTensor`s, a dry run's trace) get their output allocated and the
+call reported to `kernels/cost.py`; nothing is built or launched. Launches are counted in
 `prefill_attention.launches`, and per body in
 `prefill_attention.launches_by_body`. Each source header says what bounds
 its body on the H100 and how its design meets it.
@@ -39,7 +41,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.ref import GLOBAL
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,6 +114,11 @@ def prefill_attention(q, k, v, *, window=GLOBAL,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, S, KV, G, dv), dtype=q.dtype, device=q.device)
     which = body(q.dtype, dk, dv)
+    if cost.is_fake(q):
+        flops, nbytes = cost.prefill_work(B, S, KV, G, dk, dv,
+                                          q.element_size(), window, causal)
+        cost.report(what, flops, nbytes)
+        return out
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             KV, G, dk, dv, window, int(bool(causal)), dk ** -0.5]
     if which == "tc":

@@ -83,7 +83,7 @@ def batch_axes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
 
 
 def _n_devices(mesh) -> int:
-    return sum(len(row) for row in mesh.devices)
+    return mesh.size
 
 
 def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh,

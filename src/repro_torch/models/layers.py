@@ -31,7 +31,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels.ref import GLOBAL as GLOBAL_WINDOW  # full attention
 
+# knobs a dry run sets (launch/dryrun.py --opt flash_block=, moe=)
 FLASH_BLOCK = 512
+MOE_IMPL = "auto"
 NEG_INF = -1e30
 
 
@@ -336,7 +338,7 @@ def _top_k(x: torch.Tensor, k: int):
     return order.values[..., :k], order.indices[..., :k]
 
 
-def moe_mlp(p, x, cfg: ModelConfig, impl: str = "auto"):
+def moe_mlp(p, x, cfg: ModelConfig, impl: str = None):
     """MoE feed-forward over x (B, S, d), as the JAX package's. The router
     softmax, top-k gates, dispatch and combine run in float32; the expert
     products in the model dtype. Capacity max(4, cf k T / E) depends on
@@ -346,12 +348,14 @@ def moe_mlp(p, x, cfg: ModelConfig, impl: str = "auto"):
       dispatch tensor, each (expert, slot) holding at most one token.
     - "scatter": positions counted per batch row, tokens scattered into
       per-expert buffers of capacity max(4, cf k S / E) per row.
-    "auto", which the model's layers use, picks dense for T <= 8192 and
-    scatter above, as the JAX package's default does."""
+    "auto" picks dense for T <= 8192 and scatter above, as the JAX
+    package's default does; `impl=None` (the model's layers) reads the
+    module's MOE_IMPL, "auto" unless a dry run sets it."""
     e = cfg.moe
     B, S, d = x.shape
     T = B * S
     x_flat = x.reshape(T, d)
+    impl = impl or MOE_IMPL
     if impl == "auto":
         impl = "dense" if T <= 8192 else "scatter"
     logits = (x_flat @ p["router"]).float()                    # (T, E)

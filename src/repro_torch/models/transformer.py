@@ -603,11 +603,24 @@ def _rows_in(params, cfg: ModelConfig, tokens, embeds, R: int):
     return _embed(params, cfg, L.pad_rows(tokens, R))
 
 
+def _insert_seq(buf, new, bidx, pos, uniform: bool):
+    """Write new (B, ...) into buf (B, S, ...) at each item's position pos
+    (B,), in place. `uniform`: every item at pos[0], one slice copy, its
+    start clamped so the row fits (the JAX package's
+    `dynamic_update_slice_in_dim`)."""
+    if uniform:
+        buf.index_copy_(1, pos[:1].clamp(0, buf.shape[1] - 1), new[:, None])
+    else:
+        buf[bidx, pos] = new
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
-                rows=None, embeds=None):
+                rows=None, embeds=None, uniform_pos: bool = False):
     """One decode step. tokens: (B, 1) (or embeds (B, 1, d)). Returns
     (logits (B, V), new_cache). The new token sits at position
     cache["lengths"]; lengths are incremented in the returned cache.
+    `uniform_pos`: every item sits at the same position, and the new K/V
+    is written with one slice copy per cache tensor.
     `rows` pins the dense layers' row count (see decode_multi), the SSM
     mixers' included: their states are padded to `rows` like the inputs,
     and the returned cache holds new state tensors of the B real rows.
@@ -637,8 +650,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
             ckv_new, krope_new = L.mla_latents(
                 p["attn"], h, cfg, L.pad_rows((new_len - 1)[:, None], R))
             cc, cr = cache["c_kv"][i], cache["k_rope"][i]
-            cc[bidx, pos] = ckv_new[:B, 0].to(cc.dtype)
-            cr[bidx, pos] = krope_new[:B, 0].to(cr.dtype)
+            _insert_seq(cc, ckv_new[:B, 0].to(cc.dtype), bidx, pos,
+                        uniform_pos)
+            _insert_seq(cr, krope_new[:B, 0].to(cr.dtype), bidx, pos,
+                        uniform_pos)
             x = x + L.mla_attn_decode(p["attn"], h, cfg, int(windows[i]),
                                       cc, cr, new_len)
         elif kind == "rwkv6":
@@ -654,14 +669,15 @@ def decode_step(params, cfg: ModelConfig, cache, tokens=None, kernels=None,
             if quant:
                 k_q, ks = _quantize(k_new)
                 v_q, vs = _quantize(v_new)
-                ck[bidx, pos] = k_q[:B, 0]
-                cv[bidx, pos] = v_q[:B, 0]
-                cache["k_scale"][i][bidx, pos] = ks[:B, 0]
-                cache["v_scale"][i][bidx, pos] = vs[:B, 0]
                 k_sc, v_sc = cache["k_scale"][i], cache["v_scale"][i]
+                for buf, new in ((ck, k_q), (cv, v_q), (k_sc, ks),
+                                 (v_sc, vs)):
+                    _insert_seq(buf, new[:B, 0], bidx, pos, uniform_pos)
             else:
-                ck[bidx, pos] = k_new[:B, 0].to(ck.dtype)
-                cv[bidx, pos] = v_new[:B, 0].to(cv.dtype)
+                _insert_seq(ck, k_new[:B, 0].to(ck.dtype), bidx, pos,
+                            uniform_pos)
+                _insert_seq(cv, v_new[:B, 0].to(cv.dtype), bidx, pos,
+                            uniform_pos)
                 k_sc = v_sc = None
             if kind == "gqa":
                 x = x + L.gqa_attn_decode(p["attn"], h, cfg, int(windows[i]),

@@ -10,6 +10,7 @@ so the loop can retry a step from the last good state.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -65,7 +66,7 @@ def value_and_grad(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def train_step(params, opt_state: AdamWState, batch, cfg: ModelConfig, *,
                lr: float = 3e-4, remat: bool = True, microbatches: int = 1,
-               remat_policy: str = "none"
+               remat_policy: str = "none", scaled=None
                ) -> Tuple[PyTree, AdamWState, torch.Tensor]:
     """One optimization step. batch: dict with 'tokens' or 'embeds'
     (+ 'labels').
@@ -73,6 +74,12 @@ def train_step(params, opt_state: AdamWState, batch, cfg: ModelConfig, *,
     With microbatches > 1, the global batch is split along dim 0 and the
     grads are accumulated in float32, then the loss and the grads are
     averaged (bounds activation memory).
+
+    `scaled`, an op counter's `scaled` (launch/op_count.py), is for a
+    trace: with microbatches > 1 only the first microbatch runs, and it is
+    counted for all of them (they share one shape): its value_and_grad
+    and the loss's sum `microbatches` times, its accumulation's add
+    `microbatches - 1` times.
 
     Returns (new_params, new_opt_state, loss)."""
     if microbatches <= 1:
@@ -85,16 +92,20 @@ def train_step(params, opt_state: AdamWState, batch, cfg: ModelConfig, *,
                              f"{microbatches} microbatches")
         chunks = {k: v.chunk(microbatches) for k, v in batch.items()}
         loss_sum, acc = 0.0, None
-        for i in range(microbatches):
-            loss, g, _ = value_and_grad(
-                params, {k: v[i] for k, v in chunks.items()}, cfg,
-                remat=remat, remat_policy=remat_policy)
-            loss_sum = loss_sum + loss
+        for i in range(1 if scaled else microbatches):
+            with (scaled(microbatches) if scaled
+                  else contextlib.nullcontext()):
+                loss, g, _ = value_and_grad(
+                    params, {k: v[i] for k, v in chunks.items()}, cfg,
+                    remat=remat, remat_policy=remat_policy)
+                loss_sum = loss_sum + loss
             if acc is None:
                 acc = [x.float().clone() for x in leaves(g)]
-            else:
-                for a, x in zip(acc, leaves(g)):
-                    a.add_(x.float())
+            if i or scaled:
+                with (scaled(microbatches - 1) if scaled
+                      else contextlib.nullcontext()):
+                    for a, x in zip(acc, leaves(g)):
+                        a.add_(x.float())
             del g
         loss = loss_sum / microbatches
         grads = unflatten(params, [a.div_(microbatches) for a in acc])

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.training.checkpoint",
               "repro_torch.training.loop", "repro_torch.training.tree",
               "repro_torch.data.pipeline", "repro_torch.launch.train",
-              "repro_torch.launch.specs"):
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+              "repro_torch.launch.op_count", "repro_torch.kernels.cost"):
         assert m in mods
     # the lazy exports resolve too (a module path in a string is an import)
     code = (
